@@ -1,0 +1,118 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``csrc/`` compile with ``nvcc`` into one shared library with
+a plain C interface, loaded with ``ctypes``. No PyTorch header is included, so
+a build takes seconds. The library is cached in ``build/entreepy_tpu_torch/``
+at the root of the checkout, keyed by a hash of the sources and flags (the
+same scheme as the host runtime's cache in ``entreepy_tpu/runtime``). Nothing
+builds at import: the first kernel launch does.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = SRC_DIR.parent.parent / "build" / "entreepy_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def nvcc_path() -> str | None:
+    """``nvcc`` on PATH, else under CUDA_HOME (default /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    return str(cand) if cand.exists() else None
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in SRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path() -> Path:
+    """Cache path of the library built from the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the cache holds them. ``nvcc``'s ptxas
+    report (registers, shared memory, spills per kernel) is kept beside the
+    library as ``<name>.log``. Raises with nvcc's stderr on failure."""
+    so = library_path()
+    if so.exists():
+        return so
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    r = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu],
+        capture_output=True, text=True, timeout=900,
+    )
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n{r.stderr}")
+    so.with_suffix(".log").write_text(r.stderr)
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.et_error_string.restype = ctypes.c_char_p
+            lib.et_error_string.argtypes = [ctypes.c_int]
+            _lib = lib
+        return _lib
+
+
+def entry(name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """C entry point ``name`` with its argument types declared (pointers and
+    the stream as ``c_void_p``) and an int (cudaError_t) result."""
+    fn = getattr(library(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = library().et_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def require(t, dtype, name: str, device=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (on
+    ``device`` when given): the kernels take raw pointers."""
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want a contiguous CUDA {dtype} tensor, got {t.dtype} "
+            f"on {t.device} (contiguous={t.is_contiguous()})"
+        )
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, the other operands on {device}")

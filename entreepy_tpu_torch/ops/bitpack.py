@@ -1,0 +1,91 @@
+"""Device-side encode pieces: histogram and plane compaction of the packed words.
+
+Counterpart of ``entreepy_tpu/ops/bitpack.py``. The block pack itself is
+``ops/cuda_pack.pack_blocks``; the compaction runs through
+``ops/cuda_compact.compact_rows``. The TPU's sort-based twins and the flat
+(exact-size) compaction do not come across.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .cuda_compact import compact_rows
+
+CAP_G_ROUND = 16  # subgroup payload caps round up to this
+PLANE_SUB = 256  # plane-compaction subgroup width (slots); must divide the block size
+
+
+def histogram_device(data: torch.Tensor) -> torch.Tensor:
+    """256-bin histogram of a uint8 tensor -> int64[256] on its device. (The
+    JAX version's compare-reduce over padded columns only avoided TPU
+    scatters.)"""
+    return torch.bincount(data, minlength=256)
+
+
+def plane_sub_for(steps: int) -> int:
+    return PLANE_SUB if steps % PLANE_SUB == 0 else steps
+
+
+def grouped_counts_plane(emitted: torch.Tensor) -> torch.Tensor:
+    """Per-(lane, plane-subgroup) emitted-word counts int32[lanes, G] — the
+    tiny sizing fetch for :func:`compact_payload_plane`'s cap."""
+    lanes, steps = emitted.shape
+    sub = plane_sub_for(steps)
+    return emitted.reshape(lanes, steps // sub, sub).sum(2, dtype=torch.int32)
+
+
+def plane_cap_g(max_g: int, steps: int) -> int:
+    """Subgroup payload width covering the fullest subgroup, rounded up to
+    CAP_G_ROUND columns."""
+    sub = plane_sub_for(steps)
+    return min(-(-max(max_g, 1) // CAP_G_ROUND) * CAP_G_ROUND, sub)
+
+
+def compact_payload_plane(words: torch.Tensor, emitted: torch.Tensor,
+                          acc: torch.Tensor, nbits: torch.Tensor, cap_g: int):
+    """Per-(lane, PLANE_SUB-slot subgroup) stable compaction of the emitted
+    words; the host slices the live prefixes (:func:`assemble_plane_payload`).
+
+    words uint32[lanes, steps], emitted bool[lanes, steps] (the pack's
+    transposed k-major views), acc uint32[lanes], nbits int32[lanes].
+    ``cap_g`` must cover the fullest subgroup (size it with
+    :func:`grouped_counts_plane` + :func:`plane_cap_g`); if it does not,
+    ``bit_lens`` are poisoned to -1 and the stitch raises.
+
+    Returns (plane uint32[lanes, G*cap_g + 1] — the final partial word in the
+    last column, counts_g int32[lanes, G], bit_lens int32[lanes])."""
+    lanes, steps = words.shape
+    sub = plane_sub_for(steps)
+    g = steps // sub
+    cg = min(cap_g, sub)
+    wk = words.view(torch.int32).t().contiguous()  # [steps, lanes]
+    ek = emitted.t().contiguous()
+    plane_k, counts_k = compact_rows(wk, ek, sub, cg)
+    pay = plane_k.reshape(g, cg, lanes).permute(2, 0, 1).reshape(lanes, g * cg)
+    counts_g = counts_k.t()
+    overflow = counts_g.max() > cg
+    plane = torch.cat([pay, acc.view(torch.int32)[:, None]], dim=1)
+    bit_lens = torch.where(overflow, -1, counts_g.sum(1, dtype=torch.int32) * 32 + nbits)
+    return plane.view(torch.uint32), counts_g, bit_lens
+
+
+def assemble_plane_payload(
+    plane: np.ndarray, counts_g: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host tail of :func:`compact_payload_plane`: slice each subgroup's
+    live prefix (+ the per-lane final partial word) out of the fetched plane
+    in one boolean extraction. Returns (flat uint32 — every block's words
+    back to back, nwords int64[lanes] = count + 1) for
+    ``stitch_flat_payload``."""
+    lanes, g = counts_g.shape
+    cap_g = (plane.shape[1] - 1) // g if g else 0
+    jmask = (
+        np.arange(cap_g, dtype=np.int64)[None, None, :]
+        < counts_g[:, :, None]
+    ).reshape(lanes, g * cap_g)
+    mask = np.concatenate([jmask, np.ones((lanes, 1), bool)], axis=1)
+    flat = np.ascontiguousarray(plane)[mask]  # row-major == (lane, subgroup, slot)
+    nwords = counts_g.sum(axis=1).astype(np.int64) + 1
+    return flat, nwords

@@ -1,0 +1,153 @@
+"""Byte-FSM decode passes: CUDA kernels on the card, plain PyTorch on the CPU.
+
+Counterpart of ``entreepy_tpu/ops/pallas_fsm8.py``. The kernels live in
+``csrc/fsm8.cu``, whose header says what bounds them and how they are laid
+out. Each public function dispatches on the device of its byte tensor: a CPU
+tensor runs the plain version beside it, a CUDA tensor launches the kernel or
+raises. A wrapper counts its kernel launches in its ``launches`` attribute.
+
+Layouts are the JAX package's: byte rows ``xs`` are ``[K, lanes]`` (one lane
+per chunk), tables are the uint8 forms of ``entreepy_tpu_torch.tables``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+N_P = 9  # first-code end positions: 1..8 plus 0 = "no code completed"
+
+
+@functools.cache
+def _sync_fn():
+    return _build.entry("et_sync_pass", [_P, _P, _I, _P, _P, _I, _I, _P])
+
+
+@functools.cache
+def _fused_fn():
+    return _build.entry(
+        "et_fused_pass",
+        [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _I, _P],
+    )
+
+
+def sync_pass_plain(xs: torch.Tensor, next_state: torch.Tensor,
+                    entries: torch.Tensor) -> torch.Tensor:
+    """State-only walk: xs uint8[W, lanes], next_state uint8[S, 256],
+    entries int32[lanes] -> exits int32[lanes]."""
+    tbl = next_state.reshape(-1).long()
+    state = entries.long()
+    for row in xs.long():
+        state = tbl[state * 256 + row]
+    return state.int()
+
+
+def sync_pass(xs: torch.Tensor, next_state: torch.Tensor,
+              entries: torch.Tensor) -> torch.Tensor:
+    """Kernel 1 (replaces ``sync_pass_pallas8``); see :func:`sync_pass_plain`."""
+    if xs.device.type == "cpu":
+        return sync_pass_plain(xs, next_state, entries)
+    w, lanes = xs.shape
+    _build.require(xs, torch.uint8, "xs")
+    _build.require(next_state, torch.uint8, "next_state", xs.device)
+    _build.require(entries, torch.int32, "entries", xs.device)
+    if lanes == 0 or next_state.shape[1] != 256 or next_state.data_ptr() % 16:
+        raise ValueError("sync_pass: empty lanes or a bad next_state table")
+    exits = torch.empty(lanes, dtype=torch.int32, device=xs.device)
+    with torch.cuda.device(xs.device):
+        rc = _sync_fn()(
+            xs.data_ptr(), next_state.data_ptr(), next_state.shape[0],
+            entries.data_ptr(), exits.data_ptr(), w, lanes,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, "et_sync_pass")
+    sync_pass.launches += 1
+    return exits
+
+
+sync_pass.launches = 0
+
+
+def fused_pass_plain(xs: torch.Tensor, t_fused: torch.Tensor,
+                     entries: torch.Tensor, m: int, mt: int, s: int,
+                     packed: bool = False, n_valid: int | None = None):
+    """One one-pass decode sweep (the combine rule of
+    ``pallas_fsm8._fused_kernel``): xs uint8[K, lanes], t_fused
+    uint8[256, 2s+9(mt+2)], entries int32[lanes]. Returns (vals, exits
+    int32[lanes]); vals is int32[K, m+1, lanes] (row 0 = count | 16*invalid,
+    rows 1.. = symbol slots), or with ``packed`` (m <= 3) one int32 word per
+    byte ``row0 << 8m | slot_j << 8(m-1-j)`` with row0 zeroed at lane-linear
+    positions >= ``n_valid``. Dead slots hold table leftovers."""
+    k, lanes = xs.shape
+    cols = t_fused.shape[1]
+    tbl = t_fused.reshape(-1).long()
+    off_tc, off_end = 2 * s, 2 * s + N_P * (1 + mt)
+    n_tail = min(mt, m - 1)
+    dev = xs.device
+    if packed:
+        real = n_valid - torch.arange(lanes, device=dev, dtype=torch.int64) * k
+        out = torch.empty((k, lanes), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((k, m + 1, lanes), dtype=torch.int32, device=dev)
+    state = entries.long()
+    for i, row in enumerate(xs.long()):
+        base = row * cols
+        mg = tbl[base + state]
+        pv = tbl[base + s + state]
+        p = pv & 15
+        tcv = tbl[base + off_tc + p]
+        inv = (pv >= 16) | ((p > 0) & (tcv >= 16))
+        row0 = torch.where(inv, 16, (p > 0).long() + (tcv & 15))
+        tail = [tbl[base + off_tc + N_P * (1 + j) + p] for j in range(n_tail)]
+        if packed:
+            word = torch.where(i < real, row0, 0) << (8 * m) | mg << (8 * (m - 1))
+            for j, t in enumerate(tail):
+                word = word | t << (8 * (m - 2 - j))
+            out[i] = word.int()
+        else:
+            out[i] = torch.stack([row0, mg, *tail]).int()
+        state = torch.where(p > 0, tbl[base + off_end + p], mg)
+    return out, state.int()
+
+
+def fused_pass(xs: torch.Tensor, t_fused: torch.Tensor, entries: torch.Tensor,
+               m: int, mt: int, s: int, packed: bool = False,
+               n_valid: int | None = None):
+    """Kernel 2 (replaces ``fused_pass_pallas8``); see
+    :func:`fused_pass_plain`."""
+    if packed and m > 3:
+        raise ValueError(f"packed fused rows need 5 + 8m <= 29 bits (m={m})")
+    if packed and n_valid is None:
+        raise ValueError("packed fused rows are masked: pass n_valid")
+    if xs.device.type == "cpu":
+        return fused_pass_plain(xs, t_fused, entries, m, mt, s, packed, n_valid)
+    k, lanes = xs.shape
+    _build.require(xs, torch.uint8, "xs")
+    _build.require(t_fused, torch.uint8, "t_fused", xs.device)
+    _build.require(entries, torch.int32, "entries", xs.device)
+    cols = t_fused.shape[1]
+    if lanes == 0 or t_fused.shape[0] != 256 or cols != 2 * s + N_P * (mt + 2) \
+            or t_fused.data_ptr() % 16:
+        raise ValueError("fused_pass: empty lanes or a bad fused table")
+    shape = (k, lanes) if packed else (k, m + 1, lanes)
+    out = torch.empty(shape, dtype=torch.int32, device=xs.device)
+    exits = torch.empty(lanes, dtype=torch.int32, device=xs.device)
+    with torch.cuda.device(xs.device):
+        rc = _fused_fn()(
+            xs.data_ptr(), t_fused.data_ptr(), cols, entries.data_ptr(),
+            out.data_ptr(), exits.data_ptr(), k, lanes, m, mt, s,
+            0 if n_valid is None else int(n_valid), int(packed),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, "et_fused_pass")
+    fused_pass.launches += 1
+    return out, exits
+
+
+fused_pass.launches = 0

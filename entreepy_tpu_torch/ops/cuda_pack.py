@@ -1,0 +1,100 @@
+"""Block bit-packer: CUDA kernel on the card, plain PyTorch on the CPU.
+
+Counterpart of ``entreepy_tpu/ops/pallas_pack.py``; the kernel is in
+``csrc/pack.cu``. :func:`pack_blocks` keeps the contract of
+``entreepy_tpu.ops.bitpack.pack_blocks_scan``. Both versions write their
+per-step outputs k-major (``[steps, lanes]``, what the compaction reads) and
+return ``[lanes, steps]`` transposed views of them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_M32 = 0xFFFFFFFF
+
+
+@functools.cache
+def _pack_fn():
+    return _build.entry("et_pack_blocks", [_P] * 8 + [_I, _I, _P])
+
+
+def pack_blocks_plain(blocks: torch.Tensor, valid: torch.Tensor,
+                      codes: torch.Tensor, lengths: torch.Tensor):
+    """Pack every block independently (``pack_blocks_scan``'s arithmetic:
+    the 64-bit accumulator as two 32-bit halves held in int64).
+
+    blocks uint8[lanes, steps] zero-padded, valid int32[lanes] real bytes per
+    block, codes uint32[256], lengths uint8[256]. Returns (words
+    uint32[lanes, steps] — the accumulator's high word after every step,
+    emitted bool[lanes, steps], acc uint32[lanes] — final partial word
+    MSB-aligned, nbits int32[lanes] — bits held in acc)."""
+    lanes, steps = blocks.shape
+    dev = blocks.device
+    code_t = codes.long() & _M32
+    len_t = lengths.long()
+    valid_l = valid.long()
+    hi = torch.zeros(lanes, dtype=torch.int64, device=dev)
+    lo = torch.zeros_like(hi)
+    nbits = torch.zeros_like(hi)
+    words = torch.empty((steps, lanes), dtype=torch.int32, device=dev)
+    emitted = torch.empty((steps, lanes), dtype=torch.bool, device=dev)
+    for j, x in enumerate(blocks.t().long()):
+        live = j < valid_l
+        length = torch.where(live, len_t[x], 0)
+        code = torch.where(live, code_t[x], 0)
+        s = nbits + length  # <= 63
+        fits = s <= 32
+        hi = hi | torch.where(
+            fits, (code << (32 - s).clamp(0, 31)) & _M32, code >> (s - 32).clamp(0, 31)
+        )
+        lo = lo | torch.where(fits, 0, (code << (64 - s).clamp(0, 31)) & _M32)
+        emit = s >= 32
+        words[j] = hi.int()
+        emitted[j] = emit
+        hi = torch.where(emit, lo, hi)
+        lo = torch.where(emit, 0, lo)
+        nbits = torch.where(emit, s - 32, s)
+    return (words.view(torch.uint32).t(), emitted.t(),
+            hi.int().view(torch.uint32), nbits.int())
+
+
+def pack_blocks(blocks: torch.Tensor, valid: torch.Tensor, codes: torch.Tensor,
+                lengths: torch.Tensor):
+    """Kernel 3 (replaces ``pack_blocks_pallas``); see
+    :func:`pack_blocks_plain`."""
+    if blocks.device.type == "cpu":
+        return pack_blocks_plain(blocks, valid, codes, lengths)
+    lanes, steps = blocks.shape
+    dev = blocks.device
+    _build.require(blocks, torch.uint8, "blocks")
+    _build.require(valid, torch.int32, "valid", dev)
+    _build.require(codes, torch.uint32, "codes", dev)
+    _build.require(lengths, torch.uint8, "lengths", dev)
+    if lanes == 0 or valid.numel() != lanes or codes.numel() != 256 \
+            or lengths.numel() != 256:
+        raise ValueError("pack_blocks: empty blocks or a bad code table")
+    words = torch.empty((steps, lanes), dtype=torch.uint32, device=dev)
+    emitted = torch.empty((steps, lanes), dtype=torch.bool, device=dev)
+    acc = torch.empty(lanes, dtype=torch.uint32, device=dev)
+    nbits = torch.empty(lanes, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _pack_fn()(
+            blocks.data_ptr(), valid.data_ptr(), codes.data_ptr(),
+            lengths.data_ptr(), words.data_ptr(), emitted.data_ptr(),
+            acc.data_ptr(), nbits.data_ptr(), lanes, steps,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, "et_pack_blocks")
+    pack_blocks.launches += 1
+    return words.t(), emitted.t(), acc, nbits
+
+
+pack_blocks.launches = 0

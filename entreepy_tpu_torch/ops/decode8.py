@@ -1,0 +1,304 @@
+"""Chunk-parallel Huffman decode on one device: the one-pass byte-FSM route.
+
+Counterpart of ``entreepy_tpu/ops/decode8.py`` (its module docstring has the
+design). The body splits into ``chunk_bytes`` chunks, one lane each. A suffix
+sync pass guesses each chunk's entry state, fused passes (state chain and
+symbol emission together) run until the entry states reach a fixed point,
+and the emitted symbols are compacted on the device. The host fetches the
+compacted plane and the per-lane metadata, applies the serial-exact
+accept/reject and assembles the output.
+
+Two routes, chosen by m (the table's most symbols per byte):
+
+* m <= 3: the fused pass emits one masked word per byte and the dense
+  compaction reads the plane bytes verbatim (:func:`compact_symbols_dense`);
+* m > 3: the fused pass emits m + 1 rows per byte, and the per-subgroup
+  compaction kernel packs the live slots (:func:`compact_symbols_device`).
+
+The body runs untiled up to the int32 position bound; the streaming tiled
+route (``decode_body_device_tiled``) is not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from entreepy_tpu import format as _fmt
+from entreepy_tpu.format.etformat import parse_header
+from entreepy_tpu.format.fsm8 import build_byte_fsm
+from entreepy_tpu.format.hostcodec import _check_stream_bits
+from entreepy_tpu.format.huffman import CodeTable
+
+from ..tables import decode_tables
+from ..trace import phase
+from .cuda_compact import compact_rows
+from .cuda_fsm8 import fused_pass, sync_pass
+
+DEFAULT_CHUNK_BYTES = 512
+# Suffix bytes per chunk for the entry-state first guess (one missed guess
+# costs a whole extra fused pass over every lane).
+SYNC_WINDOW = 128
+MAX_SYNC_PASSES = 24
+SUB_BYTES = 8  # bytes per compaction subgroup on the m > 3 route
+CAP_SYM_ROUND = 16  # per-subgroup symbol caps round up to this
+NO_INVALID = 1 << 30  # w_inv of a lane without an invalid transition
+# The untiled route keeps lane-linear byte positions within int32, like the
+# JAX route it ports; larger bodies belong to the streaming tiled route.
+MAX_UNTILED_BYTES = (1 << 31) - 1
+
+
+def bytes_to_cols(padded: np.ndarray, lanes: int, k: int, device) -> torch.Tensor:
+    """uint8[lanes*k] -> uint8[lanes, k] byte columns on ``device``."""
+    return torch.from_numpy(padded.reshape(lanes, k)).to(device)
+
+
+def fsm8_decode_fused(cols: torch.Tensor, next_state: torch.Tensor,
+                      t_fused: torch.Tensor, n_real_lanes: int, m: int,
+                      mt: int, s: int, *, packed: bool = False,
+                      n_valid: int | None = None, entry0: int = 0):
+    """One-pass decode of cols uint8[lanes, K] -> (vals, exits int32[lanes],
+    unconverged bool). vals is int32[K, m+1, lanes], or with ``packed``
+    MASKED one-word rows int32[K, lanes] (``n_valid`` required). Lanes from
+    ``n_real_lanes`` on are padding and stay out of the convergence test;
+    ``entry0`` pins lane 0's entry state.
+
+    The fixed point is a Python loop with one small device-to-host check per
+    pass; it normally runs one pass (the suffix guess is near exact)."""
+    lanes, k = cols.shape
+    dev = cols.device
+    xs = cols.t().contiguous()  # [K, lanes]
+    real = torch.arange(lanes, device=dev) < n_real_lanes
+    e0 = torch.full((1,), entry0, dtype=torch.int32, device=dev)
+    w = min(SYNC_WINDOW, k)
+    suffix_exits = sync_pass(xs[k - w:], next_state,
+                             torch.zeros(lanes, dtype=torch.int32, device=dev))
+    entries = torch.cat([e0, suffix_exits[:-1]])
+    prev = entries - 1  # forces the first pass
+    vals = exits = None
+    for _ in range(MAX_SYNC_PASSES):
+        if not bool(((entries != prev) & real).any()):
+            break
+        vals, exits = fused_pass(xs, t_fused, entries, m, mt, s,
+                                 packed=packed, n_valid=n_valid)
+        prev, entries = entries, torch.cat([e0, exits[:-1]])
+    unconverged = bool(((entries != prev) & real).any())
+    return vals, exits, unconverged
+
+
+def packed_counts_inv(words: torch.Tensor, m: int):
+    """counts int32[K, lanes] and inv bool[K, lanes] straight off MASKED
+    packed words (``word >> 8m`` is 0 on padding, 16 on an invalid
+    transition, else the symbol count)."""
+    raw = words >> (8 * m)  # words are < 2^29, so this shift is logical
+    return raw & 15, raw >= 16
+
+
+def _masked_meta(counts: torch.Tensor, inv: torch.Tensor):
+    """Per-lane (lane_tot, w_inv) from per-byte counts/inv: w_inv = symbols
+    emitted before the lane's first invalid byte, NO_INVALID when none."""
+    cums = counts.cumsum(0, dtype=torch.int32) - counts
+    w_inv = torch.where(inv, cums, NO_INVALID).amin(0)
+    return counts.sum(0, dtype=torch.int32), w_inv
+
+
+def compact_symbols_dense(words: torch.Tensor, m: int):
+    """MASKED packed words -> the dense symbol plane: row ``k*m + j`` is byte
+    ``m-1-j`` of word ``k`` verbatim; dead slots carry table leftovers and
+    every consumer gates on the per-byte count. Returns (plane
+    uint8[K*m, lanes], mini_tot int32[K, lanes], lane_tot int32[lanes],
+    w_inv int32[lanes])."""
+    k, lanes = words.shape
+    counts, inv = packed_counts_inv(words, m)
+    shifts = torch.arange(8 * (m - 1), -1, -8, dtype=torch.int32, device=words.device)
+    plane = ((words[:, None, :] >> shifts[None, :, None]) & 255).to(torch.uint8)
+    lane_tot, w_inv = _masked_meta(counts, inv)
+    return plane.reshape(k * m, lanes), counts, lane_tot, w_inv
+
+
+def _expand_mask(raw: torch.Tensor, syms: torch.Tensor, n_valid: int):
+    """Unpacked rows: apply the real-byte mask (lane-linear position <
+    ``n_valid``) and split count | 16*invalid -> (counts int32, inv bool,
+    syms)."""
+    k, lanes = raw.shape
+    dev = raw.device
+    pos = (torch.arange(lanes, device=dev)[None, :] * k
+           + torch.arange(k, device=dev)[:, None])
+    real = pos < n_valid
+    return torch.where(real, raw & 15, 0), real & (raw >= 16), syms
+
+
+def _sub_width(k: int) -> int:
+    return SUB_BYTES if k % SUB_BYTES == 0 else k
+
+
+def sym_cap(counts: torch.Tensor, m: int) -> int:
+    """Per-subgroup symbol cap for :func:`compact_symbols_device`: fetches
+    the subgroup totals' max and rounds it up to CAP_SYM_ROUND."""
+    k, lanes = counts.shape
+    sb = _sub_width(k)
+    mx = max(int(counts.reshape(k // sb, sb, lanes).sum(1).max()), 1)
+    return min(-(-mx // CAP_SYM_ROUND) * CAP_SYM_ROUND, sb * m)
+
+
+def compact_symbols_device(counts: torch.Tensor, inv: torch.Tensor,
+                           syms: torch.Tensor, m: int, cap_sym: int):
+    """Dense per-byte symbol slots -> per-subgroup compacted symbol planes.
+
+    counts/inv int32/bool[K, lanes], syms uint8[K, m, lanes]. Each
+    SUB_BYTES-byte subgroup of a lane packs its live slots (``j < count``)
+    to its front through the compaction kernel; row ``g*cap_sym + j`` of
+    column ``l`` is slot ``j`` of subgroup ``g`` of lane ``l``. Returns
+    (plane uint8[Gs*cap_sym, lanes], mini_tot int32[Gs, lanes], lane_tot
+    int32[lanes] — poisoned to -1 if a subgroup overflows the cap — and
+    w_inv int32[lanes])."""
+    k, lanes = counts.shape
+    dev = counts.device
+    sb = _sub_width(k)
+    gs, sg = k // sb, sb * m
+    c3 = counts.reshape(gs, sb, lanes)
+    cums = c3.cumsum(1, dtype=torch.int32) - c3
+    mini_tot = cums[:, -1] + c3[:, -1]
+    g_start = mini_tot.cumsum(0, dtype=torch.int32) - mini_tot
+    lane_tot = g_start[-1] + mini_tot[-1]
+    w_inv = torch.where(inv.reshape(gs, sb, lanes), g_start[:, None] + cums,
+                        NO_INVALID).amin((0, 1))
+
+    live = torch.arange(m, device=dev)[None, :, None] < counts[:, None, :]
+    plane, _ = compact_rows(syms.reshape(k * m, lanes).to(torch.int32),
+                            live.reshape(k * m, lanes), sg, cap_sym)
+    # an under-sized cap would silently truncate a subgroup: reject loudly
+    lane_tot = torch.where(mini_tot.max() > cap_sym, -1, lane_tot)
+    return plane.to(torch.uint8), mini_tot, lane_tot, w_inv
+
+
+def validate_chunk_meta(counts: np.ndarray, w_inv: np.ndarray, n_symbols: int) -> None:
+    """Serial-exact accept/reject from per-chunk metadata: ``counts[c]`` =
+    symbols chunk c emits, ``w_inv[c]`` = symbols emitted before chunk c's
+    FIRST invalid transition (-1 if none). An invalid transition raises iff
+    it is consumed — i.e. lies at-or-before the byte where the n_symbols-th
+    symbol completes — matching the serial walk."""
+    total = int(counts.sum())
+    if total < n_symbols:
+        raise ValueError(
+            f"bitstream ended early: decoded {total} of {n_symbols} symbols"
+        )
+    starts = np.cumsum(counts) - counts
+    if bool(((w_inv >= 0) & (starts + w_inv < n_symbols)).any()):
+        raise ValueError("invalid bitstream: unreachable trie edge")
+
+
+def extract_plane_symbols(plane, mini_tot) -> np.ndarray:
+    """Compacted symbol plane -> flat uint8 symbols in (lane, subgroup,
+    slot) stream order (boolean extraction flattens row-major)."""
+    mt = np.asarray(mini_tot, dtype=np.int64)  # [Gs, lanes]
+    gs, lanes = mt.shape
+    plane_np = np.asarray(plane).reshape(gs, -1, lanes)  # [Gs, cap_g, lanes]
+    cap_g = plane_np.shape[1]
+    arr = plane_np.transpose(2, 0, 1)  # [lanes, Gs, cap_g]
+    mask = np.arange(cap_g, dtype=np.int64)[None, None, :] < mt.T[:, :, None]
+    return arr[mask]
+
+
+def assemble_symbol_plane(
+    plane, mini_tot, lane_tot, w_inv, n_symbols, table, n_body
+) -> np.ndarray:
+    """Validate + extract a fetched compacted symbol plane: serial-exact
+    accept/reject over the per-lane metadata, live prefixes in stream order,
+    trim to ``n_symbols``, exact-bit invariant."""
+    with phase("host_validate"):
+        w_inv = np.array(w_inv, dtype=np.int64)
+        w_inv[w_inv >= NO_INVALID] = -1
+        validate_chunk_meta(np.asarray(lane_tot, dtype=np.int64), w_inv, n_symbols)
+    with phase("host_extract"):
+        out = extract_plane_symbols(plane, mini_tot)[:n_symbols]
+    if out.size < n_symbols:
+        raise ValueError(
+            f"bitstream ended early: decoded {out.size} of {n_symbols} symbols"
+        )
+    with phase("host_check_bits"):
+        _check_stream_bits(out, table.lengths, n_body)
+    return out
+
+
+def decode_host(buf: np.ndarray, table: CodeTable, n_symbols: int) -> np.ndarray:
+    """The exact serial host decoder, for streams whose chunk self-sync does
+    not converge in MAX_SYNC_PASSES (pathologically periodic streams).
+    ``decode_host.calls`` counts its uses."""
+    decode_host.calls += 1
+    lut = _fmt.build_decode_lut(table)
+    out = _fmt.unpack_body_host(buf.tobytes(), lut, n_symbols)
+    _check_stream_bits(out, table.lengths, buf.size)
+    return out
+
+
+decode_host.calls = 0
+
+
+def decode_body_device_full(
+    body: bytes | np.ndarray,
+    table: CodeTable,
+    n_symbols: int,
+    *,
+    device,
+    chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+) -> np.ndarray:
+    """Decode a packed body on ``device`` -> uint8[n_symbols] (host array):
+    FSM passes, symbol expansion and compaction on the device; the host
+    fetches the compacted plane and the per-lane metadata."""
+    if n_symbols == 0:
+        return np.zeros(0, dtype=np.uint8)
+    buf = (
+        np.frombuffer(body, dtype=np.uint8)
+        if isinstance(body, (bytes, bytearray, memoryview))
+        else np.asarray(body, dtype=np.uint8)
+    )
+    lanes = max(1, -(-buf.size // chunk_bytes))
+    if lanes * chunk_bytes > MAX_UNTILED_BYTES:
+        raise NotImplementedError(
+            f"{buf.size} B body exceeds the untiled device decode's int32 "
+            "positions; the streaming tiled route (decode_body_device_tiled, "
+            "entreepy_tpu/ops/decode8.py:1026-1155) is not ported yet"
+        )
+    with phase("decode_tables"):
+        tables = decode_tables(build_byte_fsm(table), device)
+    m, mt, s = tables.m, tables.mt, tables.s
+    packed = m <= 3
+    with phase("body_upload", buf.size):
+        padded = np.zeros(lanes * chunk_bytes, dtype=np.uint8)
+        padded[: buf.size] = buf
+        cols = bytes_to_cols(padded, lanes, chunk_bytes, device)
+    with phase("device_fsm8_decode", n_symbols):
+        vals, _exits, unconverged = fsm8_decode_fused(
+            cols, tables.next_state, tables.fused, lanes, m, mt, s,
+            packed=packed, n_valid=buf.size,
+        )
+    if unconverged:
+        return decode_host(buf, table, n_symbols)
+    with phase("device_expand", n_symbols):
+        if packed:
+            plane, mini_tot, lane_tot, w_inv = compact_symbols_dense(vals, m)
+            mini_tot = mini_tot.to(torch.uint8)  # counts <= m <= 3
+        else:
+            counts, inv, syms = _expand_mask(
+                vals[:, 0, :], vals[:, 1:, :].to(torch.uint8), buf.size
+            )
+            cap_sym = sym_cap(counts, m)  # small sizing fetch
+            plane, mini_tot, lane_tot, w_inv = compact_symbols_device(
+                counts, inv, syms, m, cap_sym
+            )
+    with phase("device_sym_fetch", n_symbols):
+        fetched = [t.cpu().numpy() for t in (plane, mini_tot, lane_tot, w_inv)]
+    return assemble_symbol_plane(*fetched, n_symbols, table, buf.size)
+
+
+def decompress_device(et: bytes, *, device,
+                      chunk_bytes: int = DEFAULT_CHUNK_BYTES) -> bytes:
+    """Complete .et file -> original bytes, decoded chunk-parallel on
+    ``device``."""
+    hdr = parse_header(et)
+    out = decode_body_device_full(
+        et[hdr.body_start:], hdr.table, hdr.body_len, device=device,
+        chunk_bytes=chunk_bytes,
+    )
+    return out.tobytes()

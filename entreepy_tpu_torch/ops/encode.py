@@ -1,0 +1,99 @@
+"""Single-device compress pipeline: histogram, block pack and plane compaction
+on the device; code construction and bit-granular stitch on the host.
+
+Counterpart of ``entreepy_tpu/ops/encode.py``, untiled: the whole input
+stays on the device. Block size changes only device efficiency — the
+stitched ``.et`` output is byte-identical for every block size (and to the
+host codec).
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from entreepy_tpu.format.etformat import serialize_header
+from entreepy_tpu.format.huffman import CodeTable, build_code_table
+from entreepy_tpu.utils.stitch import stitch_flat_payload, words_to_bytes
+
+from ..tables import code_tensors
+from ..trace import phase
+from .bitpack import (
+    assemble_plane_payload,
+    compact_payload_plane,
+    grouped_counts_plane,
+    histogram_device,
+    plane_cap_g,
+)
+from .cuda_pack import pack_blocks
+
+DEFAULT_BLOCK_BYTES = 1024
+
+
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """uint8 host array -> tensor on ``device``. A read-only source (bytes)
+    is fine: the tensor is only read."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+        t = torch.from_numpy(arr)
+    return t.to(device)
+
+
+def histogram_on_device(data: torch.Tensor) -> np.ndarray:
+    """int64[256] histogram of a uint8 device tensor, fetched to the host."""
+    return histogram_device(data).cpu().numpy()
+
+
+def encode_blocks_device(data: torch.Tensor, table: CodeTable,
+                         block_bytes: int = DEFAULT_BLOCK_BYTES):
+    """Pack ``data`` (uint8 tensor) block-parallel on its device.
+
+    Returns (flat uint32 numpy — every block's compacted words back to back,
+    nwords int64[n_blocks] — words per block incl. the final partial one,
+    bit_lens int64[n_blocks]), for ``stitch_flat_payload``."""
+    n = data.numel()
+    dev = data.device
+    n_blocks = max(1, -(-n // block_bytes))
+    with phase("device_pack", n):
+        blocks = torch.zeros(n_blocks * block_bytes, dtype=torch.uint8, device=dev)
+        blocks[:n] = data
+        valid = np.full(n_blocks, block_bytes, dtype=np.int32)
+        valid[-1] = n - (n_blocks - 1) * block_bytes
+        codes, lengths = code_tensors(table, dev)
+        words, emitted, acc, nbits = pack_blocks(
+            blocks.reshape(n_blocks, block_bytes), torch.from_numpy(valid).to(dev),
+            codes, lengths,
+        )
+    with phase("sizing_fetch"):
+        counts_g = grouped_counts_plane(emitted)
+        cap_g = plane_cap_g(int(counts_g.max()), block_bytes)
+    with phase("device_compact"):
+        plane, counts_gd, bit_lens = compact_payload_plane(
+            words, emitted, acc, nbits, cap_g
+        )
+    with phase("device_fetch"):
+        plane_np = plane.view(torch.int32).cpu().numpy().view(np.uint32)
+        counts_np = counts_gd.cpu().numpy()
+        bit_lens_np = bit_lens.cpu().numpy().astype(np.int64)
+    with phase("host_assemble"):
+        flat, nwords = assemble_plane_payload(plane_np, counts_np)
+    return flat, nwords, bit_lens_np
+
+
+def compress_device(data: bytes, *, device, strict: bool = True,
+                    block_bytes: int = DEFAULT_BLOCK_BYTES) -> bytes:
+    """bytes -> complete .et file, byte-identical to the host codec's."""
+    arr = np.frombuffer(data, dtype=np.uint8)
+    with phase("input_upload", arr.size):
+        dev_data = upload(arr, device)
+    with phase("device_histogram", arr.size):
+        counts = histogram_on_device(dev_data)
+    with phase("code_table"):
+        table = build_code_table(counts, strict=strict)
+    flat, nwords, bit_lens = encode_blocks_device(dev_data, table, block_bytes)
+    with phase("stitch"):
+        words, total_bits = stitch_flat_payload(flat, nwords, bit_lens)
+    with phase("serialize"):
+        return serialize_header(table, arr.size) + words_to_bytes(words, total_bits)

@@ -1,0 +1,53 @@
+"""Stage timing of the port's compress and decompress pipelines.
+
+Every stage of ``ops.encode.compress_device`` and
+``ops.decode8.decompress_device`` runs inside :func:`phase`. Normally that is
+the JAX package's framework-free ``phase``: one stderr line per stage when
+``ENTREEPY_TRACE=1``, otherwise nothing. Inside :func:`record_stages` each
+stage instead ends with a device synchronize and adds its host-clock time to
+a dict, so asynchronous device work is charged to the stage that queued it.
+That costs one ``torch.cuda.synchronize()`` per stage, about a dozen per
+call, and is off unless a caller asks for it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+
+from entreepy_tpu.utils.trace import phase as _env_phase
+
+_stages: dict[str, float] | None = None
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def phase(name: str, nbytes: int | None = None):
+    """One pipeline stage (see the module docstring)."""
+    if _stages is None:
+        with _env_phase(name, nbytes):
+            yield
+        return
+    t0 = time.perf_counter()
+    yield
+    _sync()
+    _stages[name] = _stages.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def record_stages():
+    """Yield a dict that collects ``{stage: ms}`` over the calls made inside
+    the block, each stage synchronized with the device at its end."""
+    global _stages
+    _sync()
+    _stages = {}
+    try:
+        yield _stages
+    finally:
+        _stages = None

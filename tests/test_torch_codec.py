@@ -1,0 +1,215 @@
+"""The whole port on ``device="cpu"`` (the kernels' plain versions) against
+the JAX package: byte-identical .et files, exact round trips, and the same
+accept/reject on truncated and corrupt streams."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import entreepy_tpu  # noqa: E402
+from entreepy_tpu.format import compress_host, parse_header  # noqa: E402
+from entreepy_tpu.ops import decode8 as jax_decode8  # noqa: E402
+
+import entreepy_tpu_torch  # noqa: E402
+from entreepy_tpu_torch import trace  # noqa: E402
+from entreepy_tpu_torch.ops import decode8, encode  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+DATA = ROOT / "tests" / "data"
+
+
+def _stats_corpus(kind: str) -> bytes:
+    """~100 KB of the benchmarks/scale.py corpus families, plus NUL symbols."""
+    rng = np.random.default_rng(1234)
+    n = 100_000
+    if kind == "random":
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    if kind == "skewed":
+        p = 1.0 / np.arange(1, 257) ** 1.3
+        return rng.choice(256, n, p=p / p.sum()).astype(np.uint8).tobytes()
+    if kind == "runheavy":
+        unit = b"a" * 4096 + rng.integers(0, 256, 256, dtype=np.uint8).tobytes()
+        return (unit * (-(-n // len(unit))))[:n]
+    if kind == "nul":
+        return b"\x00" * 500 + bytes(range(1, 40)) * 10 + b"\x00" * 3
+    raise ValueError(kind)
+
+
+def _data(name: str, request) -> bytes:
+    if name in ("tiny_text", "macbeth", "midsummer"):
+        return request.getfixturevalue(name)
+    return _stats_corpus(name)
+
+
+@pytest.mark.parametrize(
+    "name", ["tiny_text", "macbeth", "midsummer", "random", "skewed", "runheavy", "nul"]
+)
+def test_roundtrip_matches_jax(name, request):
+    data = _data(name, request)
+    et = entreepy_tpu_torch.compress(data, device="cpu")
+    assert et == compress_host(data)
+    assert et == entreepy_tpu.compress(data, backend="device")
+    assert entreepy_tpu_torch.decompress(et, device="cpu") == data
+
+
+@pytest.mark.parametrize("block_bytes", [64, 256, 1024, 4096])
+def test_block_size_invariance(block_bytes, midsummer):
+    data = midsummer[:30000]
+    ref = entreepy_tpu.compress(data, backend="device")
+    assert ref == compress_host(data)
+    assert encode.compress_device(data, device="cpu", block_bytes=block_bytes) == ref
+
+
+@pytest.mark.parametrize("chunk_bytes", [16, 64, 512])
+@pytest.mark.parametrize("name", ["midsummer", "skewed"])
+def test_chunk_size_invariance(chunk_bytes, name, request):
+    data = _data(name, request)
+    et = compress_host(data)
+    got = decode8.decompress_device(et, device="cpu", chunk_bytes=chunk_bytes)
+    assert got == jax_decode8.decompress_device(et, chunk_bytes=chunk_bytes) == data
+
+
+def test_golden_fixture(macbeth):
+    golden = (DATA / "nice.shakespeare.et").read_bytes()
+    assert len(golden) == 374
+    assert entreepy_tpu_torch.compress(macbeth, device="cpu") == golden
+    assert entreepy_tpu_torch.decompress(golden, device="cpu") == macbeth
+
+
+def _outcome(fn, et: bytes):
+    try:
+        return fn(et)
+    except ValueError as e:
+        return (type(e).__name__, str(e))
+
+
+@pytest.fixture
+def jax_full_route(monkeypatch):
+    """The JAX device backend's fully on-device route (its pod default),
+    the route the port carries: same checks, same error messages."""
+    monkeypatch.setenv("ENTREEPY_DEVICE_E2E", "1")
+
+
+@pytest.mark.parametrize("cut", [10, 600])
+def test_truncated_body_same_error(cut, midsummer, jax_full_route):
+    et = compress_host(midsummer)
+    bad = et[: parse_header(et).body_start + cut]
+    got = _outcome(lambda b: entreepy_tpu_torch.decompress(b, device="cpu"), bad)
+    want = _outcome(lambda b: entreepy_tpu.decompress(b, backend="device"), bad)
+    assert isinstance(got, tuple) and "ended early" in got[1]
+    assert got == want
+
+
+@pytest.mark.parametrize("name,seed", [("midsummer", 5), ("skewed", 11)])
+def test_corrupt_body_same_outcome(name, seed, request, jax_full_route):
+    """Flipped body bytes: accepted with the same bytes or rejected with the
+    same error as the JAX device backend; at least one flip is caught."""
+    et = bytearray(compress_host(_data(name, request)))
+    start = parse_header(bytes(et)).body_start
+    rng = np.random.default_rng(seed)
+    rejected = 0
+    for _ in range(8):
+        pos = int(rng.integers(start + 5, len(et) - 16))
+        bad = bytes(et[:pos]) + bytes([et[pos] ^ 0xFF]) + bytes(et[pos + 1:])
+        got = _outcome(lambda b: entreepy_tpu_torch.decompress(b, device="cpu"), bad)
+        assert got == _outcome(lambda b: entreepy_tpu.decompress(b, backend="device"), bad)
+        rejected += isinstance(got, tuple)
+    assert rejected >= 1
+
+
+def test_invalid_edge_rejected():
+    """A table missing a symbol: its bits walk a dead trie edge."""
+    from entreepy_tpu.format import build_code_table, histogram, pack_body_host
+    from entreepy_tpu.format.huffman import CodeTable
+
+    data = (b"abcdef" * 200) + b"g" + (b"abcdef" * 200)
+    arr = np.frombuffer(data, np.uint8)
+    table = build_code_table(histogram(arr))
+    body, _ = pack_body_host(arr, table)
+    lengths, codes = table.lengths.copy(), table.codes.copy()
+    lengths[ord("g")] = codes[ord("g")] = 0
+    pruned = CodeTable(codes, lengths)
+    with pytest.raises(ValueError, match="invalid bitstream|corrupt|ended early"):
+        decode8.decode_body_device_full(body, pruned, arr.size, device="cpu")
+
+
+def test_unconverged_self_sync_uses_host_decoder(monkeypatch, midsummer):
+    data = midsummer[:20000]
+    et = compress_host(data)
+    real = decode8.fsm8_decode_fused
+    monkeypatch.setattr(decode8, "fsm8_decode_fused",
+                        lambda *a, **k: (*real(*a, **k)[:2], True))
+    before = decode8.decode_host.calls
+    assert decode8.decompress_device(et, device="cpu") == data
+    assert decode8.decode_host.calls == before + 1
+
+
+def test_device_backend_needs_cuda(monkeypatch):
+    """No CUDA device and no explicit device: raise, never run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def ran(*a, **k):
+        raise AssertionError("the device path ran without a CUDA device")
+
+    monkeypatch.setattr(encode, "compress_device", ran)
+    monkeypatch.setattr(decode8, "decompress_device", ran)
+    et = compress_host(b"abracadabra")
+    for call in (lambda: entreepy_tpu_torch.compress(b"abracadabra"),
+                 lambda: entreepy_tpu_torch.decompress(et),
+                 lambda: entreepy_tpu_torch.compress(b"abracadabra", device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            call()
+
+
+def test_backends_and_helpers(tmp_path, macbeth):
+    assert entreepy_tpu_torch.compress(macbeth, backend="host") == compress_host(macbeth)
+    et = compress_host(macbeth)
+    assert entreepy_tpu_torch.decompress(et, backend="host") == macbeth
+    assert entreepy_tpu_torch.inspect(et) == entreepy_tpu.inspect(et)
+    for bad, exc in ((None, NotImplementedError), ("sharded", NotImplementedError),
+                     ("tpu", ValueError)):
+        with pytest.raises(exc):
+            entreepy_tpu_torch.compress(macbeth, backend=bad)
+    src = tmp_path / "m.txt"
+    src.write_bytes(macbeth)
+    out = entreepy_tpu_torch.compress_file(src, device="cpu")
+    assert out == str(src) + ".et"
+    back = entreepy_tpu_torch.decompress_file(out, device="cpu")
+    assert Path(back).read_bytes() == macbeth
+
+
+def test_record_stages_times_every_stage(midsummer):
+    """Stage recording sees each pipeline stage once per call and leaves the
+    output unchanged; outside the block nothing is recorded."""
+    et = compress_host(midsummer)
+    with trace.record_stages() as enc:
+        assert entreepy_tpu_torch.compress(midsummer, device="cpu") == et
+    with trace.record_stages() as dec:
+        assert entreepy_tpu_torch.decompress(et, device="cpu") == midsummer
+    assert list(enc) == ["input_upload", "device_histogram", "code_table", "device_pack",
+                         "sizing_fetch", "device_compact", "device_fetch", "host_assemble",
+                         "stitch", "serialize"]
+    assert list(dec) == ["decode_tables", "body_upload", "device_fsm8_decode",
+                         "device_expand", "device_sym_fetch", "host_validate",
+                         "host_extract", "host_check_bits"]
+    assert all(ms >= 0 for ms in [*enc.values(), *dec.values()])
+    entreepy_tpu_torch.decompress(et, device="cpu")
+    assert len(dec) == 8
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, entreepy_tpu_torch as et\n"
+        "import entreepy_tpu_torch.ops.decode8, entreepy_tpu_torch.ops.encode\n"
+        "p = et.compress(b'jax-free round trip', device='cpu')\n"
+        "assert et.decompress(p, device='cpu') == b'jax-free round trip'\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr

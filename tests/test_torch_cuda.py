@@ -1,0 +1,148 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``; every test skips without a CUDA device. The card's machine
+has no JAX, so run this file without the suite's conftest (which imports it):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Exact equality on every integer; fused symbol slots and dense pack words are
+compared where the byte's count or the ``emitted`` flag makes them live.
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import entreepy_tpu_torch as et  # noqa: E402
+from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack  # noqa: E402
+from entreepy_tpu_torch.tables import code_tensors_for, decode_tables_for  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+DATA = Path(__file__).resolve().parent / "data"
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _corpus(kind: str, n: int = 60000) -> bytes:
+    rng = np.random.default_rng(7)
+    if kind == "text":
+        return (DATA / "a_midsummer_nights_dream.txt").read_bytes()[:n]
+    if kind == "random":  # m = 1, s = 256
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    if kind == "skewed":  # m = 4, s = 256
+        p = 1.0 / np.arange(1, 257) ** 1.3
+        return rng.choice(256, n, p=p / p.sum()).astype(np.uint8).tobytes()
+    if kind == "runheavy":  # m = 8
+        return (b"a" * 4096 + rng.integers(0, 256, 256, dtype=np.uint8).tobytes()) * 10
+    raise ValueError(kind)
+
+
+def _body(kind: str, chunk: int, dev):
+    tables, buf = decode_tables_for(et.compress(_corpus(kind), backend="host"), dev)
+    lanes = -(-buf.size // chunk)
+    padded = np.zeros(lanes * chunk, np.uint8)
+    padded[: buf.size] = buf
+    xs = torch.from_numpy(np.ascontiguousarray(padded.reshape(lanes, chunk).T)).to(dev)
+    return xs, tables, buf.size
+
+
+def _entries(t, lanes, dev, seed=3):
+    e = np.random.default_rng(seed).integers(0, t.s, lanes).astype(np.int32)
+    return torch.from_numpy(e).to(dev)
+
+
+@pytest.mark.parametrize("kind,chunk", [("text", 512), ("random", 64), ("skewed", 100)])
+def test_sync_pass(kind, chunk, dev):
+    xs, t, _ = _body(kind, chunk, dev)
+    entries = _entries(t, xs.shape[1], dev)
+    before = cuda_fsm8.sync_pass.launches
+    got = cuda_fsm8.sync_pass(xs[-min(128, chunk):], t.next_state, entries)
+    want = cuda_fsm8.sync_pass_plain(xs[-min(128, chunk):], t.next_state, entries)
+    assert cuda_fsm8.sync_pass.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind,chunk,packed", [
+    ("text", 512, True), ("text", 48, False), ("random", 64, True),
+    ("skewed", 512, False), ("runheavy", 32, False),
+])
+def test_fused_pass(kind, chunk, packed, dev):
+    xs, t, n_body = _body(kind, chunk, dev)
+    entries = _entries(t, xs.shape[1], dev)
+    args = (xs, t.fused, entries, t.m, t.mt, t.s, packed, n_body - 3)
+    vk, xk = cuda_fsm8.fused_pass(*args)
+    vp, xp = cuda_fsm8.fused_pass_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(xk, xp)
+    m = t.m
+    j = torch.arange(m, device=dev)[None, :, None]
+    if packed:
+        row0k, row0p = vk >> (8 * m), vp >> (8 * m)
+        sh = (8 * (m - 1 - j)).int()
+        sk, sp = (vk[:, None] >> sh) & 255, (vp[:, None] >> sh) & 255
+    else:
+        row0k, row0p, sk, sp = vk[:, 0], vp[:, 0], vk[:, 1:], vp[:, 1:]
+    assert torch.equal(row0k, row0p)
+    live = j < (row0p & 15)[:, None]
+    assert torch.equal(torch.where(live, sk, 0), torch.where(live, sp, 0))
+
+
+@pytest.mark.parametrize("kind,lanes,steps", [("text", 100, 1024), ("fib", 65, 256),
+                                              ("skewed", 1, 64)])
+def test_pack_blocks(kind, lanes, steps, dev):
+    rng = np.random.default_rng(11)
+    if kind == "fib":  # 31-bit-deep code: long codes cross the word boundary
+        counts = np.zeros(32, np.int64)
+        a, b = 1, 1
+        for sym in range(32):
+            counts[sym], a, b = a, b, a + b
+        table_src = np.repeat(np.arange(32, dtype=np.uint8), counts).tobytes()
+        blocks = rng.integers(0, 32, (lanes, steps)).astype(np.uint8)
+    else:
+        table_src = _corpus(kind, lanes * steps)
+        blocks = np.frombuffer(table_src, np.uint8).reshape(lanes, steps).copy()
+    valid = rng.integers(0, steps + 1, lanes).astype(np.int32)
+    valid[0] = steps
+    blocks = torch.from_numpy(blocks).to(dev)
+    valid = torch.from_numpy(valid).to(dev)
+    codes, lengths = code_tensors_for(et.compress(table_src, backend="host"), dev)
+    wk, ek, ak, nk = cuda_pack.pack_blocks(blocks, valid, codes, lengths)
+    wp, ep, ap, np_ = cuda_pack.pack_blocks_plain(blocks, valid, codes, lengths)
+    assert torch.equal(ek, ep) and torch.equal(nk, np_)
+    assert torch.equal(ak.view(torch.int32), ap.view(torch.int32))
+    live_k = torch.where(ep, wk.view(torch.int32), 0)
+    assert torch.equal(live_k, torch.where(ep, wp.view(torch.int32), 0))
+
+
+@pytest.mark.parametrize("k,lanes,sub,cap", [(512, 100, 256, 64), (96, 33, 24, 16),
+                                             (64, 1, 64, 64)])
+def test_compact_rows(k, lanes, sub, cap, dev):
+    rng = np.random.default_rng(k + lanes)
+    wk = torch.from_numpy(rng.integers(-2**31, 2**31, (k, lanes)).astype(np.int32)).to(dev)
+    ek = torch.from_numpy(rng.random((k, lanes)) < 0.3).to(dev)
+    ek[:, 0] = False  # all-dead lane
+    if lanes > 1:
+        ek[:, 1] = True  # full lane: truncated at cap
+    got = cuda_compact.compact_rows(wk, ek, sub, cap)
+    want = cuda_compact.compact_rows_plain(wk, ek, sub, cap)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_wrappers_reject_bad_operands(dev):
+    xs = torch.zeros((8, 4), dtype=torch.uint8, device=dev)
+    tbl = torch.zeros((128, 256), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        cuda_fsm8.sync_pass(xs, tbl, torch.zeros(4, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):
+        cuda_fsm8.sync_pass(xs.t(), tbl, torch.zeros(8, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        cuda_compact.compact_rows(torch.zeros((8, 4), dtype=torch.int32, device=dev),
+                                  torch.zeros((8, 4), dtype=torch.bool), 8, 8)
