@@ -10,18 +10,27 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 1. device  — the card's name and power limit (nvidia-smi), CUDA version,
              capability (must be 9.0), nvcc;
 2. build   — compile the kernels of entreepy_tpu_torch/csrc with nvcc;
-3. kernels — each of the four kernels against its plain PyTorch version at
-             the shapes of the 5.2 MB text corpus (and the skewed corpus for
-             the unpacked fused pass), bit-identical on every live value,
-             with median CUDA-event times;
+3. kernels — each of the seven kernels against its plain PyTorch version at
+             the shapes of the 5.2 MB text corpus (and of the skewed and
+             run-heavy corpora for the unpacked fused pass, the emit pass's
+             256-state table and the expansions' wider tables; the
+             compaction also on each expansion's rows, as the two-pass
+             routes give them), bit-identical on every live value;
+             a kernel's time is a run of back-to-back launches between one
+             CUDA-event pair, divided by the count; a plain version's is the
+             median CUDA-event time of single calls;
 4. e2e     — compress + decompress with backend="device" on 5.2 MB text,
              5 MB skewed / run-heavy / random and 100 MB text: .et bytes equal
              the host backend's, round trips exact, the 374-B golden file
-             matches, every kernel launched, no self-sync host fallback;
-             warm times of the device and the host backends side by side;
+             matches; then decompress through each two-pass route
+             (expand="split", "fused", "host"; 100 MB through "host" only).
+             Each path runs with the launch counts set to 0 and must launch
+             each of its kernels; no self-sync host fallback; warm times of
+             every route and of the host backend side by side;
 5. stages  — each corpus's compress and decompress split into the
              pipeline's stages (``entreepy_tpu_torch.trace.record_stages``:
-             host clock, the device synchronized at each stage's end);
+             host clock, the device synchronized at each stage's end), and
+             the two-pass routes' stages on 5.2 MB text;
    --profile adds one torch.profiler trace of a warm 5.2 MB round trip:
              the device's self time and its busy share of the call.
 
@@ -55,7 +64,9 @@ from entreepy_tpu_torch.ops.bitpack import (  # noqa: E402
     grouped_counts_plane, plane_cap_g, plane_sub_for,
 )
 from entreepy_tpu_torch.ops.encode import DEFAULT_BLOCK_BYTES  # noqa: E402
-from entreepy_tpu_torch.tables import code_tensors_for, decode_tables_for  # noqa: E402
+from entreepy_tpu_torch.tables import (  # noqa: E402
+    code_tensors_for, decode_tables_for, expand_tables_for,
+)
 
 DATA = ROOT / "tests" / "data"
 MB = 1_000_000
@@ -63,12 +74,29 @@ DEV = torch.device("cuda")
 KERNELS = {  # wrapper -> (name, source, TPU kernel it replaces)
     cuda_fsm8.sync_pass: ("sync_pass", "entreepy_tpu_torch/csrc/fsm8.cu",
                           "entreepy_tpu/ops/pallas_fsm8.py:183"),
+    cuda_fsm8.emit_pass: ("emit_pass", "entreepy_tpu_torch/csrc/fsm8.cu",
+                          "entreepy_tpu/ops/pallas_fsm8.py:207"),
     cuda_fsm8.fused_pass: ("fused_pass", "entreepy_tpu_torch/csrc/fsm8.cu",
                            "entreepy_tpu/ops/pallas_fsm8.py:539"),
+    cuda_fsm8.expand_pass_split: ("expand_pass_split", "entreepy_tpu_torch/csrc/expand.cu",
+                                  "entreepy_tpu/ops/pallas_fsm8.py:389"),
+    cuda_fsm8.expand_pass: ("expand_pass", "entreepy_tpu_torch/csrc/expand.cu",
+                            "entreepy_tpu/ops/pallas_fsm8.py:288"),
     cuda_pack.pack_blocks: ("pack_blocks", "entreepy_tpu_torch/csrc/pack.cu",
                             "entreepy_tpu/ops/pallas_pack.py:117"),
     cuda_compact.compact_rows: ("compact_rows", "entreepy_tpu_torch/csrc/compact.cu",
                                 "entreepy_tpu/ops/pallas_compact.py:121"),
+}
+# Kernels each main path must launch: the device backend's round trip (encode
+# and the one-pass decode) and each two-pass decode route.
+PATH_KERNELS = {
+    "device": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks,
+               cuda_compact.compact_rows),
+    "split": (cuda_fsm8.sync_pass, cuda_fsm8.emit_pass, cuda_fsm8.expand_pass_split,
+              cuda_compact.compact_rows),
+    "fused": (cuda_fsm8.sync_pass, cuda_fsm8.emit_pass, cuda_fsm8.expand_pass,
+              cuda_compact.compact_rows),
+    "host": (cuda_fsm8.sync_pass, cuda_fsm8.emit_pass),
 }
 
 
@@ -90,8 +118,29 @@ def corpus(kind: str, n_bytes: int) -> bytes:
     raise ValueError(kind)
 
 
+def kernel_ms(fn, launches: int = 50, runs: int = 3) -> float:
+    """Device time of one launch of ``fn()`` in ms: ``launches`` back-to-back
+    launches between one CUDA-event pair, divided by the count; median of
+    ``runs`` such runs after one warm-up call. A device-side sleep queued
+    first keeps the queue full while the host enqueues them, so the host's
+    per-launch cost (checks, ctypes) does not open gaps between kernels."""
+    fn()
+    times = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # ~10 ms of device cycles
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
 def cuda_ms(fn, iters: int) -> float:
-    """Median CUDA-event time of ``fn()`` in ms, after one warm-up call."""
+    """Median CUDA-event time of single ``fn()`` calls in ms, after one
+    warm-up call (the plain versions' timing)."""
     fn()
     times = []
     for _ in range(iters):
@@ -129,15 +178,79 @@ def max_err(a: torch.Tensor, b: torch.Tensor, live: torch.Tensor | None = None) 
     return err
 
 
-def body_cols(data: bytes, chunk: int = decode8.DEFAULT_CHUNK_BYTES):
-    """(xs uint8[K, lanes] on the card, decode tables, n_valid, n_real_lanes)
-    of a corpus's compressed body, as the decode's main path builds them."""
-    tables, buf = decode_tables_for(et.compress(data, backend="host"), DEV)
+def body_xs(buf: np.ndarray, chunk: int = decode8.DEFAULT_CHUNK_BYTES):
+    """(xs uint8[K, lanes] on the card, lanes) of a compressed body, as the
+    decode's main path lays it out."""
     lanes = -(-buf.size // chunk)
     padded = np.zeros(lanes * chunk, np.uint8)
     padded[: buf.size] = buf
-    cols = decode8.bytes_to_cols(padded, lanes, chunk, DEV)
-    return cols.t().contiguous(), tables, buf.size, lanes
+    return decode8.bytes_to_cols(padded, lanes, chunk, DEV).t().contiguous(), lanes
+
+
+def body_cols(data: bytes):
+    """(xs uint8[K, lanes] on the card, one-pass decode tables, n_valid,
+    n_real_lanes) of a corpus's compressed body."""
+    tables, buf = decode_tables_for(et.compress(data, backend="host"), DEV)
+    xs, lanes = body_xs(buf)
+    return xs, tables, buf.size, lanes
+
+
+def emit_check(xs, next_state):
+    """Emit kernel vs plain from the entries of the main path's first pass
+    (the suffix sync's guess): states and exits exact. Returns (err, ms,
+    plain_ms)."""
+    k, lanes = xs.shape
+    w = min(decode8.SYNC_WINDOW, k)
+    zeros = torch.zeros(lanes, dtype=torch.int32, device=DEV)
+    guess = cuda_fsm8.sync_pass(xs[-w:], next_state, zeros)
+    entries = torch.cat([zeros[:1], guess[:-1]])
+    sk, xk = cuda_fsm8.emit_pass(xs, next_state, entries)
+    sp, xp = cuda_fsm8.emit_pass_plain(xs, next_state, entries)
+    err = max(max_err(sk, sp), max_err(xk, xp))
+    ms = kernel_ms(lambda: cuda_fsm8.emit_pass(xs, next_state, entries))
+    plain_ms = cuda_ms(lambda: cuda_fsm8.emit_pass_plain(xs, next_state, entries), 3)
+    return err, ms, plain_ms
+
+
+def compact_check(rows, live, sub: int, cap: int):
+    """Compaction kernel vs plain: plane and counts exact. Returns (err, ms,
+    plain_ms)."""
+    ck = cuda_compact.compact_rows(rows, live, sub, cap)
+    cp = cuda_compact.compact_rows_plain(rows, live, sub, cap)
+    return (max(max_err(ck[0], cp[0]), max_err(ck[1], cp[1])),
+            kernel_ms(lambda: cuda_compact.compact_rows(rows, live, sub, cap)),
+            cuda_ms(lambda: cuda_compact.compact_rows_plain(rows, live, sub, cap), 3))
+
+
+def expand_check(blob: bytes, split: bool):
+    """Split or full expansion kernel vs plain at a body's shapes, from its
+    converged states: row 0 exact, symbol slots where live. Then the
+    compaction kernel vs plain on the kernel's masked rows, at the sub-group
+    width and cap the two-pass route gives it. Returns ((err, ms, plain_ms)
+    of the expansion, the same of the compaction, tables, (sub, cap))."""
+    tables, buf = expand_tables_for(blob, DEV, split)
+    xs, lanes = body_xs(buf)
+    states, unconverged = decode8.fsm8_decode(xs, tables.next_state, lanes)
+    require(not unconverged, "self-sync did not converge")
+    m = tables.m
+    if split:
+        args = (xs, states, tables.table, m, tables.mt)
+        fn, plain = cuda_fsm8.expand_pass_split, cuda_fsm8.expand_pass_split_plain
+    else:
+        args = (xs, states, tables.table, m)
+        fn, plain = cuda_fsm8.expand_pass, cuda_fsm8.expand_pass_plain
+    vk, vp = fn(*args), plain(*args)
+    j = torch.arange(m, device=DEV)[None, :, None]
+    err = max(max_err(vk[:, 0], vp[:, 0]),
+              max_err(vk[:, 1:], vp[:, 1:], j < (vp[:, 0] & 15)[:, None, :]))
+    expand = (err, kernel_ms(lambda: fn(*args)), cuda_ms(lambda: plain(*args), 3))
+
+    k = xs.shape[0]
+    counts, _inv, syms = decode8._expand_mask(vk[:, 0], vk[:, 1:].to(torch.uint8), buf.size)
+    sub, cap = decode8._sub_width(k) * m, decode8.sym_cap(counts, m)
+    live = (j < counts[:, None, :]).reshape(k * m, lanes)
+    compact = compact_check(syms.reshape(k * m, lanes).to(torch.int32), live, sub, cap)
+    return expand, compact, tables, (sub, cap)
 
 
 def fused_check(xs, tables, n_valid, lanes, packed: bool):
@@ -164,9 +277,39 @@ def fused_check(xs, tables, n_valid, lanes, packed: bool):
         slots_k, slots_p = vk[:, 1:], vp[:, 1:]
     err = max(max_err(row0k, row0p), max_err(xk, xp),
               max_err(slots_k, slots_p, j < (row0p & 15)[:, None, :]))
-    ms = cuda_ms(lambda: cuda_fsm8.fused_pass(*args), 20)
+    ms = kernel_ms(lambda: cuda_fsm8.fused_pass(*args))
     plain_ms = cuda_ms(lambda: cuda_fsm8.fused_pass_plain(*args), 3)
     return err, ms, plain_ms
+
+
+def run_path(path: str, drive) -> dict:
+    """Drive one main path with every launch count and the host-fallback
+    count at 0; require each of the path's kernels launched and no
+    fallback. Returns the launch counts of the run."""
+    for fn in KERNELS:
+        fn.launches = 0
+    decode8.decode_host.calls = 0
+    drive()
+    counts = {fn: fn.launches for fn in KERNELS}
+    print(f"[e2e] {path} path launches: "
+          f"{{{', '.join(f'{KERNELS[f][0]}: {n}' for f, n in counts.items())}}}"
+          f" | self-sync host fallbacks: {decode8.decode_host.calls}")
+    missing = [KERNELS[f][0] for f in PATH_KERNELS[path] if counts[f] == 0]
+    require(not missing, f"{path} path never launched {missing}")
+    require(decode8.decode_host.calls == 0, f"{path} path fell back to the host decoder")
+    return counts
+
+
+def stage_line(label: str, fn, iters: int, card: str) -> None:
+    """Median stage times of ``iters`` calls of ``fn`` (record_stages)."""
+    runs = []
+    for _ in range(iters):
+        with trace.record_stages() as stages:
+            fn()
+        runs.append(stages)
+    print(f"[stages] {label}, ms (median of {iters}): "
+          + ", ".join(f"{k} {statistics.median(r[k] for r in runs):.3f}" for k in runs[0])
+          + f" | {card}")
 
 
 def _self_device_us(event) -> float:
@@ -244,17 +387,17 @@ def main(argv: list[str]) -> int:
     results[cuda_fsm8.sync_pass] = (
         max_err(cuda_fsm8.sync_pass(sx, tables.next_state, zeros),
                 cuda_fsm8.sync_pass_plain(sx, tables.next_state, zeros)),
-        cuda_ms(lambda: cuda_fsm8.sync_pass(sx, tables.next_state, zeros), 20),
+        kernel_ms(lambda: cuda_fsm8.sync_pass(sx, tables.next_state, zeros)),
         cuda_ms(lambda: cuda_fsm8.sync_pass_plain(sx, tables.next_state, zeros), 3),
     )
     results[cuda_fsm8.fused_pass] = fused_check(xs, tables, n_valid, lanes, True)
+    results[cuda_fsm8.emit_pass] = emit_check(xs, tables.next_state)
 
-    sk_xs, sk_tables, sk_valid, sk_lanes = body_cols(corpus("skewed", 5 * MB))
-    err, ms, plain_ms = fused_check(sk_xs, sk_tables, sk_valid, sk_lanes, False)
-    print(f"[kernels] fused_pass unpacked, skewed body {sk_valid} B: {sk_lanes} lanes, "
-          f"m={sk_tables.m} table {tuple(sk_tables.fused.shape)} "
-          f"({sk_tables.fused.numel()} B shared): max_abs_err {err}, "
-          f"{ms:.4f} ms vs plain {plain_ms:.2f} ms | {card}")
+    def merge(fn, res) -> None:
+        """A kernel checked at further shapes: its worst error counts; the
+        JSON line keeps the first shapes' times."""
+        first = results.setdefault(fn, res)
+        results[fn] = (max(first[0], res[0]), *first[1:])
 
     n_blocks = -(-len(text) // DEFAULT_BLOCK_BYTES)
     blocks = torch.zeros(n_blocks * DEFAULT_BLOCK_BYTES, dtype=torch.uint8, device=DEV)
@@ -269,75 +412,116 @@ def main(argv: list[str]) -> int:
         max(max_err(pk[0].view(torch.int32), pp[0].view(torch.int32), pp[1]),
             max_err(pk[1], pp[1]), max_err(pk[2].view(torch.int32), pp[2].view(torch.int32)),
             max_err(pk[3], pp[3])),
-        cuda_ms(lambda: cuda_pack.pack_blocks(blocks, valid, codes, lengths), 20),
+        kernel_ms(lambda: cuda_pack.pack_blocks(blocks, valid, codes, lengths)),
         cuda_ms(lambda: cuda_pack.pack_blocks_plain(blocks, valid, codes, lengths), 3),
     )
 
-    wk = pk[0].view(torch.int32).t().contiguous()
-    ek = pk[1].t().contiguous()
+    # the compaction at the encode plane's shapes first (the JSON line's times)
     sub = plane_sub_for(DEFAULT_BLOCK_BYTES)
     cap = plane_cap_g(int(grouped_counts_plane(pk[1]).max()), DEFAULT_BLOCK_BYTES)
-    ck = cuda_compact.compact_rows(wk, ek, sub, cap)
-    cp = cuda_compact.compact_rows_plain(wk, ek, sub, cap)
-    results[cuda_compact.compact_rows] = (
-        max(max_err(ck[0], cp[0]), max_err(ck[1], cp[1])),
-        cuda_ms(lambda: cuda_compact.compact_rows(wk, ek, sub, cap), 20),
-        cuda_ms(lambda: cuda_compact.compact_rows_plain(wk, ek, sub, cap), 3),
-    )
+    results[cuda_compact.compact_rows] = compact_check(
+        pk[0].view(torch.int32).t().contiguous(), pk[1].t().contiguous(), sub, cap)
     print(f"[kernels] pack/compact: {n_blocks} blocks x {DEFAULT_BLOCK_BYTES} B, "
           f"compaction sub={sub} cap={cap}")
-    for fn, (err, ms, plain_ms) in results.items():
-        print(f"[kernels] {KERNELS[fn][0]}: max_abs_err {err}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms (median CUDA events) | {card}")
 
-    # 4. end to end, through the public API
+    # the emit pass with a 256-state table, and the expansions: text (m = 3)
+    # first, for the JSON line; the wider tables after. Each expansion's rows
+    # then go through the compaction at the two-pass route's shapes.
+    blobs = {kind: et.compress(corpus(kind, 5 * MB), backend="host")
+             for kind in ("skewed", "runheavy")}
+    blobs["text"] = et.compress(text, backend="host")
+    rh_tables, rh_buf = expand_tables_for(blobs["runheavy"], DEV, True)
+    res = emit_check(body_xs(rh_buf)[0], rh_tables.next_state)
+    merge(cuda_fsm8.emit_pass, res)
+    print(f"[kernels] emit_pass, runheavy body: S={rh_tables.s} next_state "
+          f"{tuple(rh_tables.next_state.shape)}: max_abs_err {res[0]}, kernel {res[1]:.4f} ms, "
+          f"plain {res[2]:.3f} ms | {card}")
+    for fn, split, kinds in ((cuda_fsm8.expand_pass_split, True, ("text", "runheavy")),
+                             (cuda_fsm8.expand_pass, False, ("text", "skewed", "runheavy"))):
+        for kind in kinds:
+            res, cres, t, (sub, cap) = expand_check(blobs[kind], split)
+            merge(fn, res)
+            merge(cuda_compact.compact_rows, cres)
+            print(f"[kernels] {KERNELS[fn][0]}, {kind} body: m={t.m} S={t.s} table "
+                  f"{tuple(t.table.shape)} ({t.table.numel()} B): max_abs_err {res[0]}, "
+                  f"kernel {res[1]:.4f} ms, plain {res[2]:.3f} ms | {card}")
+            print(f"[kernels] compact_rows on its rows: sub={sub} cap={cap}: max_abs_err "
+                  f"{cres[0]}, kernel {cres[1]:.4f} ms, plain {cres[2]:.3f} ms | {card}")
+
+    sk_xs, sk_tables, sk_valid, sk_lanes = body_cols(corpus("skewed", 5 * MB))
+    err, ms, plain_ms = fused_check(sk_xs, sk_tables, sk_valid, sk_lanes, False)
+    print(f"[kernels] fused_pass unpacked, skewed body {sk_valid} B: {sk_lanes} lanes, "
+          f"m={sk_tables.m} table {tuple(sk_tables.fused.shape)} "
+          f"({sk_tables.fused.numel()} B shared): max_abs_err {err}, "
+          f"{ms:.4f} ms vs plain {plain_ms:.2f} ms | {card}")
+
+    results = {fn: results[fn] for fn in KERNELS}  # the JSON line's order
+    for fn, (err, ms, plain_ms) in results.items():
+        print(f"[kernels] {KERNELS[fn][0]}: max_abs_err {err}, kernel {ms:.4f} ms "
+              f"(50 back-to-back launches per event pair), plain {plain_ms:.3f} ms "
+              f"(median of single calls) | {card}")
+
+    # 4. end to end, through the public API: each main path with its counts from 0
     golden = (DATA / "nice.shakespeare.txt").read_bytes()
     cases = [("text 5.2 MB", text)] + [
         (f"{kind} 5 MB", corpus(kind, 5 * MB)) for kind in ("skewed", "runheavy", "random")
     ] + [("text 100 MB", corpus("text", 100 * MB))]
-    for fn in KERNELS:
-        fn.launches = 0
-    decode8.decode_host.calls = 0
-    golden_et = (DATA / "nice.shakespeare.et").read_bytes()
-    require(et.compress(golden) == golden_et, "golden .et differs")
-    require(et.decompress(golden_et) == golden, "golden round trip differs")
-    print(f"[e2e] golden nice.shakespeare.et (374 B) matches | {card}")
+    e2e_blobs, dec_ms = {}, {name: {} for name, _ in cases}
+
+    def device_path():
+        golden_et = (DATA / "nice.shakespeare.et").read_bytes()
+        require(et.compress(golden) == golden_et, "golden .et differs")
+        require(et.decompress(golden_et) == golden, "golden round trip differs")
+        print(f"[e2e] golden nice.shakespeare.et (374 B) matches | {card}")
+        for name, data in cases:
+            host_blob = et.compress(data, backend="host")
+            blob = e2e_blobs[name] = et.compress(data)
+            require(blob == host_blob, f"{name}: .et differs from the host backend's")
+            require(et.decompress(blob) == data, f"{name}: round trip differs")
+            require(et.decompress(blob, backend="host") == data,
+                    f"{name}: host round trip differs")
+            iters = 2 if len(data) > 20 * MB else 5
+            line = []
+            for backend in ("device", "host"):
+                enc = wall_ms(lambda: et.compress(data, backend=backend), iters)
+                dec = wall_ms(lambda: et.decompress(blob, backend=backend), iters)
+                dec_ms[name]["onepass" if backend == "device" else "host backend"] = dec
+                line.append(f"{backend}: compress {enc:.3f} ms ({len(data) / enc / 1e3:.1f} "
+                            f"MB/s), decompress {dec:.3f} ms ({len(data) / dec / 1e3:.1f} MB/s)")
+            print(f"[e2e] {name}: {len(data)} B -> {len(blob)} B, .et == host, round trip ok | "
+                  f"{' | '.join(line)} | warm median of {iters} | {card}")
+
+    def two_pass_path(route: str):
+        for name, data in cases:
+            big = len(data) > 20 * MB
+            if big and route != "host":
+                continue  # int32 rows of every byte: 100 MB runs through "host" only
+            blob = e2e_blobs[name]
+            require(et.decompress(blob, expand=route) == data,
+                    f"{name}: expand={route} round trip differs")
+            dec_ms[name][route] = wall_ms(lambda: et.decompress(blob, expand=route),
+                                          1 if big else 5)
+
+    launches = run_path("device", device_path)
+    for route in ("split", "fused", "host"):
+        counts = run_path(route, lambda: two_pass_path(route))
+        launches = {fn: launches[fn] + counts[fn] for fn in KERNELS}
     for name, data in cases:
-        host_blob = et.compress(data, backend="host")
-        blob = et.compress(data)
-        require(blob == host_blob, f"{name}: .et differs from the host backend's")
-        require(et.decompress(blob) == data, f"{name}: round trip differs")
-        require(et.decompress(blob, backend="host") == data, f"{name}: host round trip differs")
-        iters = 2 if len(data) > 20 * MB else 5
-        line = []
-        for backend in ("device", "host"):
-            enc = wall_ms(lambda: et.compress(data, backend=backend), iters)
-            dec = wall_ms(lambda: et.decompress(blob, backend=backend), iters)
-            line.append(f"{backend}: compress {enc:.3f} ms ({len(data) / enc / 1e3:.1f} MB/s), "
-                        f"decompress {dec:.3f} ms ({len(data) / dec / 1e3:.1f} MB/s)")
-        print(f"[e2e] {name}: {len(data)} B -> {len(blob)} B, .et == host, round trip ok | "
-              f"{' | '.join(line)} | warm median of {iters} | {card}")
-    launches = {fn: fn.launches for fn in KERNELS}
-    print(f"[e2e] launches: {{{', '.join(f'{KERNELS[f][0]}: {n}' for f, n in launches.items())}}}"
-          f" | self-sync host fallbacks: {decode8.decode_host.calls}")
-    missing = [KERNELS[f][0] for f, n in launches.items() if n == 0]
-    require(not missing, f"main path never launched {missing}")
-    require(decode8.decode_host.calls == 0, "self-sync fell back to the host decoder")
+        print(f"[e2e] {name} decompress by route, ms (MB/s): "
+              + ", ".join(f"{route} {ms:.3f} ({len(data) / ms / 1e3:.1f})"
+                          for route, ms in dec_ms[name].items())
+              + (" | warm median of 2 (expand=host: 1 run)" if len(data) > 20 * MB
+                 else " | warm median of 5") + f" | {card}")
 
     # 5. stages of the device backend (and, with --profile, the device's busy share)
     for name, data in cases:
-        blob = et.compress(data)
+        blob = e2e_blobs[name]
         iters = 1 if len(data) > 20 * MB else 5
-        for direction, fn in (("compress", lambda: et.compress(data)),
-                              ("decompress", lambda: et.decompress(blob))):
-            runs = []
-            for _ in range(iters):
-                with trace.record_stages() as stages:
-                    fn()
-                runs.append(stages)
-            print(f"[stages] {name} {direction}, ms (median of {iters}): "
-                  + ", ".join(f"{k} {statistics.median(r[k] for r in runs):.3f}"
-                              for k in runs[0]) + f" | {card}")
+        stage_line(f"{name} compress", lambda: et.compress(data), iters, card)
+        stage_line(f"{name} decompress", lambda: et.decompress(blob), iters, card)
+    for route in ("split", "fused", "host"):
+        stage_line(f"text 5.2 MB decompress expand={route}",
+                   lambda: et.decompress(e2e_blobs["text 5.2 MB"], expand=route), 5, card)
     if profile:
         profile_round_trip(text, card)
     require("jax" not in sys.modules, "the port imported jax")

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` compile with ``nvcc`` into one shared library with
-a plain C interface, loaded with ``ctypes``. No PyTorch header is included, so
-a build takes seconds. The library is cached in ``build/entreepy_tpu_torch/``
+a plain C interface, loaded with ``ctypes``: one ``nvcc`` per source, all
+started together, then one link. No PyTorch header is included, so a build
+takes seconds. The library is cached in ``build/entreepy_tpu_torch/``
 at the root of the checkout, keyed by a hash of the sources and flags (the
 same scheme as the host runtime's cache in ``entreepy_tpu/runtime``). Nothing
 builds at import: the first kernel launch does.
@@ -19,14 +20,14 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = SRC_DIR.parent.parent / "build" / "entreepy_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_TIMEOUT_S = 900
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -47,11 +48,20 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     """Cache path of the library built from the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, "-shared")).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
+
+
+def _nvcc(nvcc: str, args: list[str], what: str) -> str:
+    """Run ``nvcc`` with ``args``; returns its stderr (ptxas's report),
+    raises with it on failure."""
+    r = subprocess.run([nvcc, *args], capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what} (exit {r.returncode}):\n{r.stderr}")
+    return r.stderr
 
 
 def build() -> Path:
@@ -66,16 +76,20 @@ def build() -> Path:
         raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    r = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cu],
-        capture_output=True, text=True, timeout=900,
-    )
-    if r.returncode != 0:
+    sources = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [so.with_name(f"{so.stem}.{os.getpid()}.{p.stem}.o") for p in sources]
+    try:
+        with ThreadPoolExecutor(len(sources)) as pool:  # every source at once
+            report = "".join(pool.map(
+                lambda src, o: _nvcc(nvcc, [*NVCC_FLAGS, "-c", "-o", str(o), str(src)], src.name),
+                sources, objs))
+        _nvcc(nvcc, [*ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)], "the link")
+        so.with_suffix(".log").write_text(report)
+        os.replace(tmp, so)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {r.returncode}):\n{r.stderr}")
-    so.with_suffix(".log").write_text(r.stderr)
-    os.replace(tmp, so)
+        for o in objs:
+            o.unlink(missing_ok=True)
     return so
 
 

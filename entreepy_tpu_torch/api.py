@@ -6,6 +6,9 @@ Two backends with byte-identical output:
   (``device="cuda"`` unless one is passed). ``device="cpu"`` runs the
   kernels' plain PyTorch versions instead. Without a CUDA device and without
   an explicit ``device``, the call raises: nothing falls back to the CPU.
+  ``decompress``'s ``expand`` picks the decode route on the device (see
+  ``ops.decode8``): "onepass" (default), the two-pass "split" and "fused",
+  or "host" (device state passes, host expansion).
 * ``host`` — the JAX package's framework-free host codec
   (``entreepy_tpu.format``), which never imports JAX.
 
@@ -67,16 +70,23 @@ def compress(data: bytes, *, strict: bool = True, backend: str = "device",
 
 
 def decompress(et: bytes, *, backend: str = "device", device=None,
-               progress=None) -> bytes:
-    """Decompress a complete .et file back to the original bytes."""
+               expand: str = "onepass", progress=None) -> bytes:
+    """Decompress a complete .et file back to the original bytes.
+
+    expand: the device backend's decode route — "onepass" (default), "split"
+    or "fused" (two-pass, split or full expand table; the JAX package's
+    ENTREEPY_EXPAND), or "host" (two-pass, states expanded on the host; its
+    ENTREEPY_DEVICE_E2E=0). Any other value raises ValueError.
+    """
+    from .ops.decode8 import check_expand, decompress_device
+
+    check_expand(expand)
     if _pick_backend(backend) == "host":
         return decompress_host(et, progress=progress)
-    from .ops.decode8 import decompress_device
-
     dev = resolve_device(device)
     tick = progress or (lambda pct, msg: None)
     tick(20, "Decoding text...")
-    out = decompress_device(et, device=dev)
+    out = decompress_device(et, device=dev, expand=expand)
     tick(90, "Writing decoded text...")
     return out
 

@@ -2,6 +2,8 @@
 //
 // Replace the TPU kernels of entreepy_tpu/ops/pallas_fsm8.py:
 //   et_sync_pass   <- sync_pass_pallas8  (_sync8_kernel):  state-only walk over a chunk suffix
+//   et_emit_pass   <- emit_pass_pallas8  (_emit8_kernel):  full walk storing each byte's
+//                                                          pre-transition state
 //   et_fused_pass  <- fused_pass_pallas8 (_fused_kernel):  one-pass decode sweep
 //
 // On the TPU every byte's transition was a one-hot MXU contraction against the whole table,
@@ -13,9 +15,9 @@
 // byte k's state is known, and each byte costs a short chain of dependent shared-memory loads
 // (sync: 1; fused: merged/p -> tail count -> tail end). A pass therefore takes about
 // K x (chain latency) once every lane has a thread; device-memory traffic is small (1 B read
-// per body byte; 4 B written packed, 4(m+1) B unpacked). The design:
+// per body byte; emit: 1 B written; fused: 4 B written packed, 4(m+1) B unpacked). The design:
 //   * stages the whole table in shared memory once per block (fused: 256 x (2s + 9(mt+2)) B,
-//     58 KB for the text corpus, at most 148 KB; sync: S x 256 B, at most 64 KB), raising the
+//     58 KB for the text corpus, at most 148 KB; sync/emit: S x 256 B, at most 64 KB), raising the
 //     block's dynamic shared-memory cap above 48 KB where needed;
 //   * reads bytes from the [K, lanes] layout, so a warp's loads at step k are one 32-byte
 //     sector and its stores one 128-byte line;
@@ -39,6 +41,26 @@ __global__ void sync_kernel(const uint8_t* __restrict__ xs, const uint8_t* __res
   if (lane >= lanes) return;
   int state = entries[lane];
   for (int k = 0; k < w; ++k) state = tbl[state * 256 + xs[(size_t)k * lanes + lane]];
+  exits[lane] = state;
+}
+
+// The sync walk over all K bytes, storing each byte's state BEFORE its transition. The TPU
+// kernel packed four states per int32 word (its store economics); here states is uint8[K, lanes]
+// and a warp's stores at step k are 32 adjacent bytes.
+__global__ void emit_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ next_state,
+                            int n_states, const int32_t* __restrict__ entries,
+                            uint8_t* __restrict__ states, int32_t* __restrict__ exits, int k_len,
+                            int lanes) {
+  extern __shared__ __align__(16) uint8_t tbl[];
+  et::stage_table(tbl, next_state, n_states * 256);
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  int state = entries[lane];
+  for (int k = 0; k < k_len; ++k) {
+    const size_t o = (size_t)k * lanes + lane;
+    states[o] = (uint8_t)state;
+    state = tbl[state * 256 + xs[o]];
+  }
   exits[lane] = state;
 }
 
@@ -100,6 +122,19 @@ int et_sync_pass(const void* xs, const void* next_state, int n_states, const voi
                 (cudaStream_t)stream>>>(
       (const uint8_t*)xs, (const uint8_t*)next_state, n_states, (const int32_t*)entries,
       (int32_t*)exits, w, lanes);
+  return (int)cudaGetLastError();
+}
+
+int et_emit_pass(const void* xs, const void* next_state, int n_states, const void* entries,
+                 void* states, void* exits, int k_len, int lanes, void* stream) {
+  const int smem = n_states * 256;
+  cudaError_t err =
+      cudaFuncSetAttribute(emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  emit_kernel<<<et::blocks_for(lanes, et::kLaneThreads), et::kLaneThreads, smem,
+                (cudaStream_t)stream>>>(
+      (const uint8_t*)xs, (const uint8_t*)next_state, n_states, (const int32_t*)entries,
+      (uint8_t*)states, (int32_t*)exits, k_len, lanes);
   return (int)cudaGetLastError();
 }
 

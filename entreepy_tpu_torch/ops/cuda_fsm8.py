@@ -1,10 +1,13 @@
 """Byte-FSM decode passes: CUDA kernels on the card, plain PyTorch on the CPU.
 
 Counterpart of ``entreepy_tpu/ops/pallas_fsm8.py``. The kernels live in
-``csrc/fsm8.cu``, whose header says what bounds them and how they are laid
-out. Each public function dispatches on the device of its byte tensor: a CPU
-tensor runs the plain version beside it, a CUDA tensor launches the kernel or
-raises. A wrapper counts its kernel launches in its ``launches`` attribute.
+``csrc/fsm8.cu`` (sync, emit and fused passes) and ``csrc/expand.cu`` (the
+two-pass expansions), whose headers say what bounds them and how they are
+laid out. Each public function dispatches on the device of its byte tensor:
+a CPU tensor runs the plain version beside it, a CUDA tensor launches the
+kernel or raises. A wrapper counts its kernel launches in its ``launches``
+attribute. The expansions' states must be below the table's S, as the emit
+pass's are: the kernels index the tables with them unchecked.
 
 Layouts are the JAX package's: byte rows ``xs`` are ``[K, lanes]`` (one lane
 per chunk), tables are the uint8 forms of ``entreepy_tpu_torch.tables``.
@@ -30,11 +33,37 @@ def _sync_fn():
 
 
 @functools.cache
+def _emit_fn():
+    return _build.entry("et_emit_pass", [_P, _P, _I, _P, _P, _P, _I, _I, _P])
+
+
+@functools.cache
+def _expand_split_fn():
+    return _build.entry("et_expand_split_pass", [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P])
+
+
+@functools.cache
+def _expand_fn():
+    return _build.entry("et_expand_pass", [_P, _P, _P, _I, _I, _P, _I, _I, _P])
+
+
+@functools.cache
 def _fused_fn():
     return _build.entry(
         "et_fused_pass",
         [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong, _I, _P],
     )
+
+
+def _require_walk(xs, next_state, entries, name: str) -> None:
+    _build.require(xs, torch.uint8, "xs")
+    _build.require(next_state, torch.uint8, "next_state", xs.device)
+    _build.require(entries, torch.int32, "entries", xs.device)
+    lanes = xs.shape[1]
+    if lanes == 0 or entries.shape != (lanes,) or next_state.shape[1] != 256 \
+            or next_state.data_ptr() % 16:
+        raise ValueError(f"{name}: empty lanes, {lanes} lanes but entries "
+                         f"{tuple(entries.shape)}, or a bad next_state table")
 
 
 def sync_pass_plain(xs: torch.Tensor, next_state: torch.Tensor,
@@ -54,11 +83,7 @@ def sync_pass(xs: torch.Tensor, next_state: torch.Tensor,
     if xs.device.type == "cpu":
         return sync_pass_plain(xs, next_state, entries)
     w, lanes = xs.shape
-    _build.require(xs, torch.uint8, "xs")
-    _build.require(next_state, torch.uint8, "next_state", xs.device)
-    _build.require(entries, torch.int32, "entries", xs.device)
-    if lanes == 0 or next_state.shape[1] != 256 or next_state.data_ptr() % 16:
-        raise ValueError("sync_pass: empty lanes or a bad next_state table")
+    _require_walk(xs, next_state, entries, "sync_pass")
     exits = torch.empty(lanes, dtype=torch.int32, device=xs.device)
     with torch.cuda.device(xs.device):
         rc = _sync_fn()(
@@ -72,6 +97,143 @@ def sync_pass(xs: torch.Tensor, next_state: torch.Tensor,
 
 
 sync_pass.launches = 0
+
+
+def emit_pass_plain(xs: torch.Tensor, next_state: torch.Tensor,
+                    entries: torch.Tensor):
+    """Full state walk that keeps every byte's state BEFORE its transition:
+    xs uint8[K, lanes], next_state uint8[S, 256], entries int32[lanes] ->
+    (states uint8[K, lanes], exits int32[lanes])."""
+    tbl = next_state.reshape(-1).long()
+    state = entries.long()
+    states = torch.empty(xs.shape, dtype=torch.uint8, device=xs.device)
+    for k, row in enumerate(xs.long()):
+        states[k] = state
+        state = tbl[state * 256 + row]
+    return states, state.int()
+
+
+def emit_pass(xs: torch.Tensor, next_state: torch.Tensor, entries: torch.Tensor):
+    """Kernel 5 (replaces ``emit_pass_pallas8``, whose four-states-per-word
+    packing does not come across); see :func:`emit_pass_plain`."""
+    if xs.device.type == "cpu":
+        return emit_pass_plain(xs, next_state, entries)
+    k, lanes = xs.shape
+    _require_walk(xs, next_state, entries, "emit_pass")
+    states = torch.empty((k, lanes), dtype=torch.uint8, device=xs.device)
+    exits = torch.empty(lanes, dtype=torch.int32, device=xs.device)
+    with torch.cuda.device(xs.device):
+        rc = _emit_fn()(
+            xs.data_ptr(), next_state.data_ptr(), next_state.shape[0],
+            entries.data_ptr(), states.data_ptr(), exits.data_ptr(), k, lanes,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, "et_emit_pass")
+    emit_pass.launches += 1
+    return states, exits
+
+
+emit_pass.launches = 0
+
+
+def _split_width(t_split: torch.Tensor, mt: int) -> int:
+    """S of a split table uint8[256, 2S + 9(mt+1)], from its shape."""
+    return (t_split.shape[1] - N_P * (mt + 1)) // 2
+
+
+def expand_pass_split_plain(xs: torch.Tensor, states: torch.Tensor,
+                            t_split: torch.Tensor, m: int, mt: int) -> torch.Tensor:
+    """Split-table expansion (the combine rule of
+    ``pallas_fsm8._expand_split_kernel``): xs uint8[K, lanes], states
+    [K, lanes] each byte's pre-transition state, t_split uint8[256,
+    2S+9(mt+1)] -> int32[K, m+1, lanes]: row 0 = count | 16*invalid, rows
+    1.. = symbol slots. Dead slots hold table values."""
+    cols = t_split.shape[1]
+    s = _split_width(t_split, mt)
+    tbl = t_split.reshape(-1).long()
+    base = xs.long() * cols
+    st = states.long()
+    fs = tbl[base + st]
+    pv = tbl[base + s + st]
+    p = pv & 15
+    tc = tbl[base + 2 * s + p]
+    inv = (pv >= 16) | (tc >= 16)
+    row0 = torch.where(inv, 16, (p > 0).long() + (tc & 15))
+    tail = [tbl[base + 2 * s + N_P * (1 + j) + p] for j in range(min(mt, m - 1))]
+    return torch.stack([row0, fs, *tail], dim=1).int()
+
+
+def _require_expand(xs, states, table, name: str) -> None:
+    _build.require(xs, torch.uint8, "xs")
+    _build.require(states, torch.uint8, "states", xs.device)
+    _build.require(table, torch.uint8, "table", xs.device)
+    if states.shape != xs.shape or xs.numel() == 0 or table.shape[0] != 256:
+        raise ValueError(f"{name}: xs {tuple(xs.shape)}, states {tuple(states.shape)}, "
+                         f"table {tuple(table.shape)}")
+
+
+def expand_pass_split(xs: torch.Tensor, states: torch.Tensor, t_split: torch.Tensor,
+                      m: int, mt: int) -> torch.Tensor:
+    """Kernel 6 (replaces ``expand_pass_split_pallas8``); see
+    :func:`expand_pass_split_plain`."""
+    if xs.device.type == "cpu":
+        return expand_pass_split_plain(xs, states, t_split, m, mt)
+    k, lanes = xs.shape
+    _require_expand(xs, states, t_split, "expand_pass_split")
+    cols, s = t_split.shape[1], _split_width(t_split, mt)
+    if s not in (128, 256) or cols != 2 * s + N_P * (mt + 1) or t_split.data_ptr() % 16:
+        raise ValueError(f"expand_pass_split: bad split table {tuple(t_split.shape)}, mt={mt}")
+    out = torch.empty((k, m + 1, lanes), dtype=torch.int32, device=xs.device)
+    with torch.cuda.device(xs.device):
+        rc = _expand_split_fn()(
+            xs.data_ptr(), states.data_ptr(), t_split.data_ptr(), cols, s, m, mt,
+            out.data_ptr(), k, lanes, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, "et_expand_split_pass")
+    expand_pass_split.launches += 1
+    return out
+
+
+expand_pass_split.launches = 0
+
+
+def expand_pass_plain(xs: torch.Tensor, states: torch.Tensor, t_exp: torch.Tensor,
+                      m: int) -> torch.Tensor:
+    """Full-table expansion (``pallas_fsm8._expand_kernel``): xs uint8[K,
+    lanes], states [K, lanes], t_exp uint8[256, (m+1)S] ->
+    int32[K, m+1, lanes] with ``vals[k, j, lane] = t_exp[byte, j*S + state]``
+    (the rows of :func:`expand_pass_split_plain`)."""
+    s = t_exp.shape[1] // (m + 1)
+    tbl = t_exp.reshape(-1).long()
+    idx = xs.long() * t_exp.shape[1] + states.long()
+    j = torch.arange(m + 1, device=xs.device) * s
+    return tbl[idx[:, None, :] + j[None, :, None]].int()
+
+
+def expand_pass(xs: torch.Tensor, states: torch.Tensor, t_exp: torch.Tensor,
+                m: int) -> torch.Tensor:
+    """Kernel 7 (replaces ``expand_pass_pallas8``); see
+    :func:`expand_pass_plain`. The table may exceed shared memory (576 KB at
+    S = 256, m = 8): the kernel reads it from device memory."""
+    if xs.device.type == "cpu":
+        return expand_pass_plain(xs, states, t_exp, m)
+    k, lanes = xs.shape
+    _require_expand(xs, states, t_exp, "expand_pass")
+    s = t_exp.shape[1] // (m + 1)
+    if s not in (128, 256) or t_exp.shape[1] != (m + 1) * s:
+        raise ValueError(f"expand_pass: bad expand table {tuple(t_exp.shape)}, m={m}")
+    out = torch.empty((k, m + 1, lanes), dtype=torch.int32, device=xs.device)
+    with torch.cuda.device(xs.device):
+        rc = _expand_fn()(
+            xs.data_ptr(), states.data_ptr(), t_exp.data_ptr(), s, m, out.data_ptr(),
+            k, lanes, torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(rc, "et_expand_pass")
+    expand_pass.launches += 1
+    return out
+
+
+expand_pass.launches = 0
 
 
 def fused_pass_plain(xs: torch.Tensor, t_fused: torch.Tensor,

@@ -1,22 +1,29 @@
-"""Chunk-parallel Huffman decode on one device: the one-pass byte-FSM route.
+"""Chunk-parallel Huffman decode on one device: the byte-FSM routes.
 
 Counterpart of ``entreepy_tpu/ops/decode8.py`` (its module docstring has the
 design). The body splits into ``chunk_bytes`` chunks, one lane each. A suffix
-sync pass guesses each chunk's entry state, fused passes (state chain and
-symbol emission together) run until the entry states reach a fixed point,
-and the emitted symbols are compacted on the device. The host fetches the
-compacted plane and the per-lane metadata, applies the serial-exact
-accept/reject and assembles the output.
+sync pass guesses each chunk's entry state, then full passes run until the
+entry states reach a fixed point (:func:`_fixed_point`). The caller picks the
+route (``expand``; the JAX package's ``ENTREEPY_EXPAND`` and
+``ENTREEPY_DEVICE_E2E`` choose the same routes from the environment):
 
-Two routes, chosen by m (the table's most symbols per byte):
+* ``onepass`` (default): fused passes emit the symbols with the state chain.
+  For m <= 3 (the table's most symbols per byte) each byte is one masked
+  word and the dense compaction reads the plane bytes verbatim
+  (:func:`compact_symbols_dense`); for m > 3 each byte is m + 1 rows, packed
+  by the per-subgroup compaction kernel (:func:`compact_symbols_device`);
+* ``split`` / ``fused``: two-pass. Emit passes write each byte's
+  pre-transition state (:func:`fsm8_decode`), an expansion kernel turns
+  (byte, state) into rows through the split or the full expand table, and
+  the compaction kernel packs them;
+* ``host``: the emit passes' states are fetched in stream order, one byte
+  per body byte, and the host runtime expands them
+  (:func:`decode_body_device`).
 
-* m <= 3: the fused pass emits one masked word per byte and the dense
-  compaction reads the plane bytes verbatim (:func:`compact_symbols_dense`);
-* m > 3: the fused pass emits m + 1 rows per byte, and the per-subgroup
-  compaction kernel packs the live slots (:func:`compact_symbols_device`).
-
-The body runs untiled up to the int32 position bound; the streaming tiled
-route (``decode_body_device_tiled``) is not ported.
+The device routes fetch the compacted plane and the per-lane metadata and
+apply the serial-exact accept/reject on the host. They run untiled up to the
+int32 position bound; the streaming tiled route (``decode_body_device_tiled``)
+is not ported.
 """
 
 from __future__ import annotations
@@ -25,15 +32,17 @@ import numpy as np
 import torch
 
 from entreepy_tpu import format as _fmt
+from entreepy_tpu import runtime
 from entreepy_tpu.format.etformat import parse_header
-from entreepy_tpu.format.fsm8 import build_byte_fsm
-from entreepy_tpu.format.hostcodec import _check_stream_bits
+from entreepy_tpu.format.fsm8 import ByteFsm, build_byte_fsm
+from entreepy_tpu.format.hostcodec import _check_end_byte, _check_stream_bits
 from entreepy_tpu.format.huffman import CodeTable
 
-from ..tables import decode_tables
+from ..tables import ExpandTables, decode_tables, expand_tables, next_state_tensor
 from ..trace import phase
+from . import cuda_fsm8
 from .cuda_compact import compact_rows
-from .cuda_fsm8 import fused_pass, sync_pass
+from .cuda_fsm8 import emit_pass, fused_pass, sync_pass
 
 DEFAULT_CHUNK_BYTES = 512
 # Suffix bytes per chunk for the entry-state first guess (one missed guess
@@ -46,11 +55,43 @@ NO_INVALID = 1 << 30  # w_inv of a lane without an invalid transition
 # The untiled route keeps lane-linear byte positions within int32, like the
 # JAX route it ports; larger bodies belong to the streaming tiled route.
 MAX_UNTILED_BYTES = (1 << 31) - 1
+# Decode routes of ``decompress_device`` (see the module docstring).
+EXPAND_MODES = ("onepass", "split", "fused", "host")
 
 
 def bytes_to_cols(padded: np.ndarray, lanes: int, k: int, device) -> torch.Tensor:
     """uint8[lanes*k] -> uint8[lanes, k] byte columns on ``device``."""
     return torch.from_numpy(padded.reshape(lanes, k)).to(device)
+
+
+def _fixed_point(xs: torch.Tensor, next_state: torch.Tensor, n_real_lanes: int,
+                 entry0: int, run_pass):
+    """Entry states of xs uint8[K, lanes] to their fixed point: the suffix
+    sync pass guesses each lane's entry, then ``run_pass(entries) -> (out,
+    exits int32[lanes])`` runs until no real lane's entry changes. Lanes from
+    ``n_real_lanes`` on are padding and stay out of the convergence test;
+    ``entry0`` pins lane 0's entry state. Returns (out, exits, unconverged
+    bool) of the last pass.
+
+    The fixed point is a Python loop with one small device-to-host check per
+    pass; it normally runs one pass (the suffix guess is near exact)."""
+    k, lanes = xs.shape
+    dev = xs.device
+    real = torch.arange(lanes, device=dev) < n_real_lanes
+    e0 = torch.full((1,), entry0, dtype=torch.int32, device=dev)
+    w = min(SYNC_WINDOW, k)
+    suffix_exits = sync_pass(xs[k - w:], next_state,
+                             torch.zeros(lanes, dtype=torch.int32, device=dev))
+    entries = torch.cat([e0, suffix_exits[:-1]])
+    prev = entries - 1  # forces the first pass
+    out = exits = None
+    for _ in range(MAX_SYNC_PASSES):
+        if not bool(((entries != prev) & real).any()):
+            break
+        out, exits = run_pass(entries)
+        prev, entries = entries, torch.cat([e0, exits[:-1]])
+    unconverged = bool(((entries != prev) & real).any())
+    return out, exits, unconverged
 
 
 def fsm8_decode_fused(cols: torch.Tensor, next_state: torch.Tensor,
@@ -59,31 +100,27 @@ def fsm8_decode_fused(cols: torch.Tensor, next_state: torch.Tensor,
                       n_valid: int | None = None, entry0: int = 0):
     """One-pass decode of cols uint8[lanes, K] -> (vals, exits int32[lanes],
     unconverged bool). vals is int32[K, m+1, lanes], or with ``packed``
-    MASKED one-word rows int32[K, lanes] (``n_valid`` required). Lanes from
-    ``n_real_lanes`` on are padding and stay out of the convergence test;
-    ``entry0`` pins lane 0's entry state.
-
-    The fixed point is a Python loop with one small device-to-host check per
-    pass; it normally runs one pass (the suffix guess is near exact)."""
-    lanes, k = cols.shape
-    dev = cols.device
+    MASKED one-word rows int32[K, lanes] (``n_valid`` required). Padding
+    lanes and ``entry0`` as in :func:`_fixed_point`."""
     xs = cols.t().contiguous()  # [K, lanes]
-    real = torch.arange(lanes, device=dev) < n_real_lanes
-    e0 = torch.full((1,), entry0, dtype=torch.int32, device=dev)
-    w = min(SYNC_WINDOW, k)
-    suffix_exits = sync_pass(xs[k - w:], next_state,
-                             torch.zeros(lanes, dtype=torch.int32, device=dev))
-    entries = torch.cat([e0, suffix_exits[:-1]])
-    prev = entries - 1  # forces the first pass
-    vals = exits = None
-    for _ in range(MAX_SYNC_PASSES):
-        if not bool(((entries != prev) & real).any()):
-            break
-        vals, exits = fused_pass(xs, t_fused, entries, m, mt, s,
-                                 packed=packed, n_valid=n_valid)
-        prev, entries = entries, torch.cat([e0, exits[:-1]])
-    unconverged = bool(((entries != prev) & real).any())
-    return vals, exits, unconverged
+    return _fixed_point(
+        xs, next_state, n_real_lanes, entry0,
+        lambda entries: fused_pass(xs, t_fused, entries, m, mt, s,
+                                   packed=packed, n_valid=n_valid),
+    )
+
+
+def fsm8_decode(xs: torch.Tensor, next_state: torch.Tensor, n_real_lanes: int):
+    """The two-pass decode's state pass: emit passes over xs uint8[K, lanes]
+    (the kernels' layout; the JAX package's is its transpose) to the fixed
+    point, lane 0 entering at the root. Returns (states uint8[K, lanes],
+    each byte's pre-transition state, and unconverged bool). Padding lanes
+    as in :func:`_fixed_point`."""
+    states, _exits, unconverged = _fixed_point(
+        xs, next_state, n_real_lanes, 0,
+        lambda entries: emit_pass(xs, next_state, entries),
+    )
+    return states, unconverged
 
 
 def packed_counts_inv(words: torch.Tensor, m: int):
@@ -126,6 +163,20 @@ def _expand_mask(raw: torch.Tensor, syms: torch.Tensor, n_valid: int):
            + torch.arange(k, device=dev)[:, None])
     real = pos < n_valid
     return torch.where(real, raw & 15, 0), real & (raw >= 16), syms
+
+
+def run_expand(xs: torch.Tensor, states: torch.Tensor, tables: ExpandTables,
+               n_valid: int):
+    """The two-pass expansion (the JAX package's ``run_expand`` with its
+    ``expand_pass_split`` and ``expand_pass_device``): xs/states
+    uint8[K, lanes] through the split table, or the full one when
+    ``tables.mt`` is None -> (counts int32[K, lanes], inv bool[K, lanes],
+    syms uint8[K, m, lanes]), masked to lane-linear positions < ``n_valid``."""
+    if tables.mt is None:
+        vals = cuda_fsm8.expand_pass(xs, states, tables.table, tables.m)
+    else:
+        vals = cuda_fsm8.expand_pass_split(xs, states, tables.table, tables.m, tables.mt)
+    return _expand_mask(vals[:, 0], vals[:, 1:].to(torch.uint8), n_valid)
 
 
 def _sub_width(k: int) -> int:
@@ -235,6 +286,23 @@ def decode_host(buf: np.ndarray, table: CodeTable, n_symbols: int) -> np.ndarray
 decode_host.calls = 0
 
 
+def _body_buf(body: bytes | np.ndarray) -> np.ndarray:
+    return (
+        np.frombuffer(body, dtype=np.uint8)
+        if isinstance(body, (bytes, bytearray, memoryview))
+        else np.asarray(body, dtype=np.uint8)
+    )
+
+
+def _upload_body(buf: np.ndarray, lanes: int, chunk_bytes: int, device) -> torch.Tensor:
+    """The body zero-padded to ``lanes`` chunks, as cols uint8[lanes, K] on
+    ``device``."""
+    with phase("body_upload", buf.size):
+        padded = np.zeros(lanes * chunk_bytes, dtype=np.uint8)
+        padded[: buf.size] = buf
+        return bytes_to_cols(padded, lanes, chunk_bytes, device)
+
+
 def decode_body_device_full(
     body: bytes | np.ndarray,
     table: CodeTable,
@@ -242,17 +310,18 @@ def decode_body_device_full(
     *,
     device,
     chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+    expand: str = "onepass",
 ) -> np.ndarray:
     """Decode a packed body on ``device`` -> uint8[n_symbols] (host array):
     FSM passes, symbol expansion and compaction on the device; the host
-    fetches the compacted plane and the per-lane metadata."""
+    fetches the compacted plane and the per-lane metadata. ``expand`` picks
+    the one-pass route or a two-pass one with the split or the full expand
+    table ("onepass", "split" or "fused")."""
+    if expand not in ("onepass", "split", "fused"):
+        raise ValueError(f"decode_body_device_full: unknown expand route {expand!r}")
     if n_symbols == 0:
         return np.zeros(0, dtype=np.uint8)
-    buf = (
-        np.frombuffer(body, dtype=np.uint8)
-        if isinstance(body, (bytes, bytearray, memoryview))
-        else np.asarray(body, dtype=np.uint8)
-    )
+    buf = _body_buf(body)
     lanes = max(1, -(-buf.size // chunk_bytes))
     if lanes * chunk_bytes > MAX_UNTILED_BYTES:
         raise NotImplementedError(
@@ -260,19 +329,23 @@ def decode_body_device_full(
             "positions; the streaming tiled route (decode_body_device_tiled, "
             "entreepy_tpu/ops/decode8.py:1026-1155) is not ported yet"
         )
+    onepass = expand == "onepass"
     with phase("decode_tables"):
-        tables = decode_tables(build_byte_fsm(table), device)
-    m, mt, s = tables.m, tables.mt, tables.s
-    packed = m <= 3
-    with phase("body_upload", buf.size):
-        padded = np.zeros(lanes * chunk_bytes, dtype=np.uint8)
-        padded[: buf.size] = buf
-        cols = bytes_to_cols(padded, lanes, chunk_bytes, device)
+        fsm = build_byte_fsm(table)
+        tables = (decode_tables(fsm, device) if onepass
+                  else expand_tables(fsm, device, split=expand == "split"))
+    m = tables.m
+    packed = onepass and m <= 3
+    cols = _upload_body(buf, lanes, chunk_bytes, device)
     with phase("device_fsm8_decode", n_symbols):
-        vals, _exits, unconverged = fsm8_decode_fused(
-            cols, tables.next_state, tables.fused, lanes, m, mt, s,
-            packed=packed, n_valid=buf.size,
-        )
+        if onepass:
+            vals, _exits, unconverged = fsm8_decode_fused(
+                cols, tables.next_state, tables.fused, lanes, m, tables.mt, tables.s,
+                packed=packed, n_valid=buf.size,
+            )
+        else:
+            xs = cols.t().contiguous()  # [K, lanes]
+            states, unconverged = fsm8_decode(xs, tables.next_state, lanes)
     if unconverged:
         return decode_host(buf, table, n_symbols)
     with phase("device_expand", n_symbols):
@@ -280,9 +353,12 @@ def decode_body_device_full(
             plane, mini_tot, lane_tot, w_inv = compact_symbols_dense(vals, m)
             mini_tot = mini_tot.to(torch.uint8)  # counts <= m <= 3
         else:
-            counts, inv, syms = _expand_mask(
-                vals[:, 0, :], vals[:, 1:, :].to(torch.uint8), buf.size
-            )
+            if onepass:
+                counts, inv, syms = _expand_mask(
+                    vals[:, 0, :], vals[:, 1:, :].to(torch.uint8), buf.size
+                )
+            else:
+                counts, inv, syms = run_expand(xs, states, tables, buf.size)
             cap_sym = sym_cap(counts, m)  # small sizing fetch
             plane, mini_tot, lane_tot, w_inv = compact_symbols_device(
                 counts, inv, syms, m, cap_sym
@@ -292,13 +368,84 @@ def decode_body_device_full(
     return assemble_symbol_plane(*fetched, n_symbols, table, buf.size)
 
 
-def decompress_device(et: bytes, *, device,
-                      chunk_bytes: int = DEFAULT_CHUNK_BYTES) -> bytes:
+def expand_states(states: np.ndarray, body: np.ndarray, fsm: ByteFsm,
+                  n_symbols: int) -> np.ndarray:
+    """(per-byte pre-states, body bytes) -> uint8[n_symbols] in stream order.
+
+    The C++ runtime's walk when it is available, else vectorized numpy.
+    Raises on invalid transitions, early stream end, and on the exact-bit
+    invariant: the n_symbols-th symbol must complete in the body's final
+    byte (the stream is neither truncated nor over-long)."""
+    n = body.size
+    st = np.ascontiguousarray(states.reshape(-1)[:n], dtype=np.uint8)
+    res = runtime.fsm8_expand(st, body, fsm.counts, fsm.syms, n_symbols)
+    if res is not None:
+        out, end_byte = res
+    else:
+        cnt = fsm.counts[st, body].astype(np.int64)  # [n], -1 invalid
+        cum = np.cumsum(np.maximum(cnt, 0))
+        done = int(np.searchsorted(cum, n_symbols, side="left"))
+        if done >= n or cum[done] < n_symbols:
+            raise ValueError(
+                f"bitstream ended early: decoded {int(cum[-1]) if n else 0} "
+                f"of {n_symbols} symbols"
+            )
+        if (cnt[: done + 1] < 0).any():
+            raise ValueError("invalid bitstream: unreachable trie edge")
+        sy = fsm.syms[st[: done + 1], body[: done + 1]]  # [done + 1, 8]
+        mask = np.arange(8, dtype=np.int64)[None, :] < cnt[: done + 1, None]
+        out = sy[mask][:n_symbols]
+        end_byte = done
+    _check_end_byte(end_byte, n, n_symbols)
+    return out
+
+
+def decode_body_device(
+    body: bytes | np.ndarray,
+    table: CodeTable,
+    n_symbols: int,
+    *,
+    device,
+    chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+) -> np.ndarray:
+    """Decode a packed body with host expansion -> uint8[n_symbols] (host
+    array): the emit passes run on ``device``, their states are transposed
+    to stream order there and fetched, one byte per body byte, and the host
+    runtime walks (state, byte) pairs into symbols (:func:`expand_states`)."""
+    if n_symbols == 0:
+        return np.zeros(0, dtype=np.uint8)
+    buf = _body_buf(body)
+    lanes = max(1, -(-buf.size // chunk_bytes))
+    with phase("decode_tables"):
+        fsm = build_byte_fsm(table)
+        next_state = next_state_tensor(fsm, device)
+    cols = _upload_body(buf, lanes, chunk_bytes, device)
+    with phase("device_fsm8_decode", n_symbols):
+        states, unconverged = fsm8_decode(cols.t().contiguous(), next_state, lanes)
+    if unconverged:
+        return decode_host(buf, table, n_symbols)
+    with phase("device_state_fetch", buf.size):
+        st = states.t().contiguous().reshape(-1)[: buf.size].cpu().numpy()
+    with phase("host_expand", n_symbols):
+        return expand_states(st, buf, fsm, n_symbols)
+
+
+def check_expand(expand: str) -> None:
+    if expand not in EXPAND_MODES:
+        raise ValueError(f"unknown expand route {expand!r} (want one of {EXPAND_MODES})")
+
+
+def decompress_device(et: bytes, *, device, chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                      expand: str = "onepass") -> bytes:
     """Complete .et file -> original bytes, decoded chunk-parallel on
-    ``device``."""
+    ``device`` through the ``expand`` route (one of EXPAND_MODES)."""
+    check_expand(expand)
     hdr = parse_header(et)
-    out = decode_body_device_full(
-        et[hdr.body_start:], hdr.table, hdr.body_len, device=device,
-        chunk_bytes=chunk_bytes,
-    )
+    body = et[hdr.body_start:]
+    if expand == "host":
+        out = decode_body_device(body, hdr.table, hdr.body_len, device=device,
+                                 chunk_bytes=chunk_bytes)
+    else:
+        out = decode_body_device_full(body, hdr.table, hdr.body_len, device=device,
+                                      chunk_bytes=chunk_bytes, expand=expand)
     return out.tobytes()

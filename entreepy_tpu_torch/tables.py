@@ -16,7 +16,13 @@ import numpy as np
 import torch
 
 from entreepy_tpu.format.etformat import parse_header
-from entreepy_tpu.format.fsm8 import ByteFsm, build_byte_fsm, fused_decode_tensors
+from entreepy_tpu.format.fsm8 import (
+    ByteFsm,
+    build_byte_fsm,
+    expand_tensors,
+    fused_decode_tensors,
+    split_expand_tensors,
+)
 from entreepy_tpu.format.huffman import CodeTable
 
 
@@ -36,14 +42,55 @@ class DecodeTables:
     s: int
 
 
+def next_state_tensor(fsm: ByteFsm, device) -> torch.Tensor:
+    """``fsm.next_state`` uint8[S, 256] on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(fsm.next_state)).to(device)
+
+
 def decode_tables(fsm: ByteFsm, device) -> DecodeTables:
     t, m, mt, s = fused_decode_tensors(fsm)
     return DecodeTables(
-        next_state=torch.from_numpy(np.ascontiguousarray(fsm.next_state)).to(device),
+        next_state=next_state_tensor(fsm, device),
         fused=torch.from_numpy(t.astype(np.uint8)).to(device),
         m=m,
         mt=mt,
         s=s,
+    )
+
+
+@dataclass(frozen=True)
+class ExpandTables:
+    """Tables of the two-pass decode (see ``format.fsm8``): the state pass
+    needs ``next_state``, the expansion one expand table.
+
+    next_state  uint8[S, 256]                 state after a byte
+    table       uint8[256, 2S + 9(mt+1)]      ``split_expand_tensors``, or
+                uint8[256, (m+1)S]            ``expand_tensors`` (mt is None)
+    m, mt, s    max symbols per byte, tail slots, S = ``fsm.width`` (128 or
+                256) — not the one-pass table's padded live-state count
+    """
+
+    next_state: torch.Tensor
+    table: torch.Tensor
+    m: int
+    mt: int | None
+    s: int
+
+
+def expand_tables(fsm: ByteFsm, device, split: bool) -> ExpandTables:
+    """The two-pass tables, with the split expand table or the full one
+    (``build_expand`` of the JAX package, the mode passed explicitly). The
+    one-pass fused table is not built."""
+    if split:
+        t, m, mt = split_expand_tensors(fsm)
+    else:
+        (t, m), mt = expand_tensors(fsm), None
+    return ExpandTables(
+        next_state=next_state_tensor(fsm, device),
+        table=torch.from_numpy(t.astype(np.uint8)).to(device),
+        m=m,
+        mt=mt,
+        s=fsm.width,
     )
 
 
@@ -54,12 +101,23 @@ def code_tensors(table: CodeTable, device) -> tuple[torch.Tensor, torch.Tensor]:
     return codes, lengths
 
 
+def _fsm_and_body(et: bytes) -> tuple[ByteFsm, np.ndarray]:
+    hdr = parse_header(et)
+    return build_byte_fsm(hdr.table), np.frombuffer(et, dtype=np.uint8)[hdr.body_start:]
+
+
 def decode_tables_for(et: bytes, device) -> tuple[DecodeTables, np.ndarray]:
     """(decode tables on ``device``, packed body uint8[n_body] on the host)
     of a complete .et file."""
-    hdr = parse_header(et)
-    body = np.frombuffer(et, dtype=np.uint8)[hdr.body_start:]
-    return decode_tables(build_byte_fsm(hdr.table), device), body
+    fsm, body = _fsm_and_body(et)
+    return decode_tables(fsm, device), body
+
+
+def expand_tables_for(et: bytes, device, split: bool) -> tuple[ExpandTables, np.ndarray]:
+    """(two-pass tables on ``device``, packed body uint8[n_body] on the
+    host) of a complete .et file."""
+    fsm, body = _fsm_and_body(et)
+    return expand_tables(fsm, device, split), body
 
 
 def code_tensors_for(et: bytes, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -5,8 +5,9 @@ has no JAX, so run this file without the suite's conftest (which imports it):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Exact equality on every integer; fused symbol slots and dense pack words are
-compared where the byte's count or the ``emitted`` flag makes them live.
+Exact equality on every integer; fused and expanded symbol slots and dense
+pack words are compared where the byte's count or the ``emitted`` flag makes
+them live.
 """
 
 from pathlib import Path
@@ -17,8 +18,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import entreepy_tpu_torch as et  # noqa: E402
-from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack  # noqa: E402
-from entreepy_tpu_torch.tables import code_tensors_for, decode_tables_for  # noqa: E402
+from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, decode8  # noqa: E402
+from entreepy_tpu_torch.tables import (  # noqa: E402
+    code_tensors_for,
+    decode_tables_for,
+    expand_tables_for,
+)
 
 pytestmark = pytest.mark.cuda
 DATA = Path(__file__).resolve().parent / "data"
@@ -95,6 +100,85 @@ def test_fused_pass(kind, chunk, packed, dev):
     assert torch.equal(torch.where(live, sk, 0), torch.where(live, sp, 0))
 
 
+@pytest.mark.parametrize("kind,chunk", [("text", 1), ("skewed", 3), ("text", 512),
+                                        ("runheavy", 512)])
+def test_emit_pass(kind, chunk, dev):
+    xs, t, _ = _body(kind, chunk, dev)
+    lanes = xs.shape[1] - (xs.shape[1] % 64 == 0)  # not a multiple of the block
+    xs = xs[:, :lanes].contiguous()
+    entries = _entries(t, lanes, dev)
+    before = cuda_fsm8.emit_pass.launches
+    sk, xk = cuda_fsm8.emit_pass(xs, t.next_state, entries)
+    sp, xp = cuda_fsm8.emit_pass_plain(xs, t.next_state, entries)
+    torch.cuda.synchronize()
+    assert cuda_fsm8.emit_pass.launches == before + 1
+    assert sk.dtype == torch.uint8 and sk.shape == xs.shape
+    assert torch.equal(sk, sp) and torch.equal(xk, xp)
+
+
+def _expand_check(vk, vp, m):
+    """Rows of an expansion kernel and its plain version: row 0 exact, symbol
+    slots where live."""
+    assert vk.shape == vp.shape == (vp.shape[0], m + 1, vp.shape[2])
+    assert torch.equal(vk[:, 0], vp[:, 0])
+    live = torch.arange(m, device=vp.device)[None, :, None] < (vp[:, 0] & 15)[:, None]
+    assert torch.equal(torch.where(live, vk[:, 1:], 0), torch.where(live, vp[:, 1:], 0))
+
+
+def _two_pass_inputs(kind, chunk, split, dev):
+    """(xs uint8[K, lanes], random states < S, expand tables) of a corpus."""
+    tables, buf = expand_tables_for(et.compress(_corpus(kind), backend="host"), dev, split)
+    lanes = -(-buf.size // chunk) + 5  # a few padding lanes
+    padded = np.zeros(lanes * chunk, np.uint8)
+    padded[: buf.size] = buf
+    xs = torch.from_numpy(np.ascontiguousarray(padded.reshape(lanes, chunk).T)).to(dev)
+    rng = np.random.default_rng(chunk)
+    states = torch.from_numpy(rng.integers(0, tables.s, xs.shape).astype(np.uint8)).to(dev)
+    return xs, states, tables
+
+
+@pytest.mark.parametrize("kind,m", [("random", 1), ("skewed", 4), ("runheavy", 8),
+                                    ("text", 3)])
+def test_expand_pass_split(kind, m, dev):
+    xs, states, t = _two_pass_inputs(kind, 512, True, dev)
+    assert t.m == m and t.table.shape == (256, 2 * t.s + 9 * (t.mt + 1))
+    before = cuda_fsm8.expand_pass_split.launches
+    vk = cuda_fsm8.expand_pass_split(xs, states, t.table, t.m, t.mt)
+    vp = cuda_fsm8.expand_pass_split_plain(xs, states, t.table, t.m, t.mt)
+    torch.cuda.synchronize()
+    assert cuda_fsm8.expand_pass_split.launches == before + 1
+    _expand_check(vk, vp, m)
+
+
+@pytest.mark.parametrize("kind,table_bytes", [("skewed", 320 * 1024), ("runheavy", 576 * 1024),
+                                              ("text", 128 * 1024)])
+def test_expand_pass(kind, table_bytes, dev):
+    """Tables beyond a block's 227 KB of shared memory included."""
+    xs, states, t = _two_pass_inputs(kind, 100, False, dev)
+    assert t.mt is None and t.table.numel() == table_bytes
+    before = cuda_fsm8.expand_pass.launches
+    vk = cuda_fsm8.expand_pass(xs, states, t.table, t.m)
+    vp = cuda_fsm8.expand_pass_plain(xs, states, t.table, t.m)
+    torch.cuda.synchronize()
+    assert cuda_fsm8.expand_pass.launches == before + 1
+    _expand_check(vk, vp, t.m)
+
+
+@pytest.mark.parametrize("expand", ["onepass", "split", "fused", "host"])
+@pytest.mark.parametrize("kind", ["text", "skewed", "runheavy"])
+def test_decode_routes(kind, expand, dev):
+    """Every decode route round-trips on the card, through its kernels."""
+    data = _corpus(kind)
+    blob = et.compress(data, backend="host")
+    kernels = {"split": cuda_fsm8.expand_pass_split, "fused": cuda_fsm8.expand_pass,
+               "host": cuda_fsm8.emit_pass, "onepass": cuda_fsm8.fused_pass}
+    before = kernels[expand].launches
+    calls = decode8.decode_host.calls
+    assert et.decompress(blob, expand=expand) == data
+    assert kernels[expand].launches > before
+    assert decode8.decode_host.calls == calls
+
+
 @pytest.mark.parametrize("kind,lanes,steps", [("text", 100, 1024), ("fib", 65, 256),
                                               ("skewed", 1, 64)])
 def test_pack_blocks(kind, lanes, steps, dev):
@@ -146,3 +230,12 @@ def test_wrappers_reject_bad_operands(dev):
     with pytest.raises(ValueError):
         cuda_compact.compact_rows(torch.zeros((8, 4), dtype=torch.int32, device=dev),
                                   torch.zeros((8, 4), dtype=torch.bool), 8, 8)
+    with pytest.raises(ValueError):  # entries shorter than the lanes
+        cuda_fsm8.emit_pass(xs, tbl, torch.zeros(3, dtype=torch.int32, device=dev))
+    split = torch.zeros((256, 2 * 128 + 9 * 3), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):  # states not uint8
+        cuda_fsm8.expand_pass_split(xs, xs.int(), split, 3, 2)
+    with pytest.raises(ValueError):  # the split table of another mt
+        cuda_fsm8.expand_pass_split(xs, xs, split, 3, 1)
+    with pytest.raises(ValueError):  # a full table is (m + 1) * S wide
+        cuda_fsm8.expand_pass(xs, xs, split, 3)
