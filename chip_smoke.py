@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with an H100:
 
-    python3 chip_smoke.py [--profile]
+    [ENTREEPY_PROFILE=<dir>] python3 chip_smoke.py
 
 Phases, one or more lines each; any failure raises and the exit code is not 0:
 
@@ -22,16 +22,26 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 4. e2e     — compress + decompress with backend="device" on 5.2 MB text,
              5 MB skewed / run-heavy / random and 100 MB text: .et bytes equal
              the host backend's, round trips exact, the 374-B golden file
-             matches; then decompress through each two-pass route
-             (expand="split", "fused", "host"; 100 MB through "host" only).
-             Each path runs with the launch counts set to 0 and must launch
-             each of its kernels; no self-sync host fallback; warm times of
-             every route and of the host backend side by side;
+             matches, the 100 MB text streams in >= 2 decode and encode tiles
+             (counted: one sync pass per decode tile, one pack launch per
+             encode tile); then decompress through each two-pass route
+             (expand="split", "fused", "host"; 100 MB through "host" only);
+             then the tiled decode at narrow tiles (100 MB text in 8192-lane
+             tiles, 5 MB skewed in 1024-lane tiles: byte-exact) and the peak
+             device memory of the 100 MB decompress at both tile widths; auto
+             routing (backend=None: the host-to-device probe must say fast,
+             host at 5.2 MB, the device at 100 MB); the CLI in process
+             (``entreepy_tpu_torch.cli.main``: c/d of the 100 MB file through
+             auto, ``--backend device`` on the 5.2 MB file). Each path runs
+             with the launch counts set to 0 and must launch each of its
+             kernels; no self-sync host fallback; warm times of every route,
+             of auto and of the host backend side by side;
 5. stages  — each corpus's compress and decompress split into the
              pipeline's stages (``entreepy_tpu_torch.trace.record_stages``:
              host clock, the device synchronized at each stage's end), and
              the two-pass routes' stages on 5.2 MB text;
-   --profile adds one torch.profiler trace of a warm 5.2 MB round trip:
+   ENTREEPY_PROFILE=<dir> adds the port's profiler (trace.maybe_profile)
+             over a warm 5.2 MB round trip, its traces written into <dir>:
              the device's self time and its busy share of the call.
 
 Then one JSON line of kernel results, the nvidia-smi line again, and last
@@ -43,9 +53,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -58,14 +70,14 @@ if not (ROOT / "entreepy_tpu_torch" / "csrc").is_dir():
 sys.path.insert(0, str(ROOT))
 
 import entreepy_tpu_torch as et  # noqa: E402
-from entreepy_tpu_torch import _build, trace  # noqa: E402
+from entreepy_tpu_torch import _build, api, cli, trace  # noqa: E402
 from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, decode8  # noqa: E402
 from entreepy_tpu_torch.ops.bitpack import (  # noqa: E402
     grouped_counts_plane, plane_cap_g, plane_sub_for,
 )
 from entreepy_tpu_torch.ops.encode import DEFAULT_BLOCK_BYTES  # noqa: E402
 from entreepy_tpu_torch.tables import (  # noqa: E402
-    code_tensors_for, decode_tables_for, expand_tables_for,
+    body_for, code_tensors_for, decode_tables_for, expand_tables_for,
 )
 
 DATA = ROOT / "tests" / "data"
@@ -97,6 +109,12 @@ PATH_KERNELS = {
     "fused": (cuda_fsm8.sync_pass, cuda_fsm8.emit_pass, cuda_fsm8.expand_pass,
               cuda_compact.compact_rows),
     "host": (cuda_fsm8.sync_pass, cuda_fsm8.emit_pass),
+    # the tiled decode at narrow tiles: packed text and unpacked skewed rows
+    "tiles": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_compact.compact_rows),
+    # auto routing at 5.2 MB (host: no launch) and 100 MB (the device)
+    "auto": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks),
+    "cli": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks,
+            cuda_compact.compact_rows),
 }
 
 
@@ -318,24 +336,24 @@ def _self_device_us(event) -> float:
 
 
 def profile_round_trip(data: bytes, card: str) -> None:
-    """torch.profiler over one warm compress and one warm decompress: the
+    """The port's profiler (``trace.maybe_profile``: a trace per block into
+    $ENTREEPY_PROFILE) over one warm compress and one warm decompress: the
     device's self time (kernels and copies), its share of the profiled call,
     the top device entries."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    blob = et.compress(data)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        et.decompress(blob)  # the profiler's first session pays its own start-up
-    for direction, fn in (("compress", lambda: et.compress(data)),
-                          ("decompress", lambda: et.decompress(blob))):
+    blob = et.compress(data, backend="device")
+    with trace.maybe_profile():
+        et.decompress(blob, backend="device")  # the profiler's first session pays its start-up
+    for direction, fn in (("compress", lambda: et.compress(data, backend="device")),
+                          ("decompress", lambda: et.decompress(blob, backend="device"))):
         fn()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with trace.maybe_profile() as prof:
+            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+            wall = (time.perf_counter() - t0) * 1e3
         # device-side entries only: a host op's self device time repeats its kernels'
         events = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                         key=_self_device_us, reverse=True)
@@ -347,10 +365,12 @@ def profile_round_trip(data: bytes, card: str) -> None:
 
 
 def main(argv: list[str]) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--profile", action="store_true",
-                        help="add a torch.profiler trace of a warm 5.2 MB round trip")
-    profile = parser.parse_args(argv).profile
+    argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0],
+        epilog="ENTREEPY_PROFILE=<dir> adds a torch.profiler trace of a warm 5.2 MB "
+               "round trip, written into <dir>",
+    ).parse_args(argv)
+    profile = bool(os.environ.get("ENTREEPY_PROFILE"))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -466,29 +486,40 @@ def main(argv: list[str]) -> int:
     cases = [("text 5.2 MB", text)] + [
         (f"{kind} 5 MB", corpus(kind, 5 * MB)) for kind in ("skewed", "runheavy", "random")
     ] + [("text 100 MB", corpus("text", 100 * MB))]
-    e2e_blobs, dec_ms = {}, {name: {} for name, _ in cases}
+    data_of = dict(cases)
+    e2e_blobs, dec_ms, enc_ms = {}, {name: {} for name, _ in cases}, {}
 
     def device_path():
         golden_et = (DATA / "nice.shakespeare.et").read_bytes()
-        require(et.compress(golden) == golden_et, "golden .et differs")
-        require(et.decompress(golden_et) == golden, "golden round trip differs")
+        require(et.compress(golden, backend="device") == golden_et, "golden .et differs")
+        require(et.decompress(golden_et, backend="device") == golden,
+                "golden round trip differs")
         print(f"[e2e] golden nice.shakespeare.et (374 B) matches | {card}")
         for name, data in cases:
             host_blob = et.compress(data, backend="host")
-            blob = e2e_blobs[name] = et.compress(data)
+            packs = cuda_pack.pack_blocks.launches
+            blob = e2e_blobs[name] = et.compress(data, backend="device")
+            enc_tiles = cuda_pack.pack_blocks.launches - packs
             require(blob == host_blob, f"{name}: .et differs from the host backend's")
-            require(et.decompress(blob) == data, f"{name}: round trip differs")
+            syncs = cuda_fsm8.sync_pass.launches
+            require(et.decompress(blob, backend="device") == data, f"{name}: round trip differs")
+            dec_tiles = cuda_fsm8.sync_pass.launches - syncs
             require(et.decompress(blob, backend="host") == data,
                     f"{name}: host round trip differs")
+            if len(data) > 20 * MB:
+                require(dec_tiles >= 2 and enc_tiles >= 2,
+                        f"{name}: {dec_tiles} decode / {enc_tiles} encode tiles, want >= 2")
             iters = 2 if len(data) > 20 * MB else 5
             line = []
             for backend in ("device", "host"):
                 enc = wall_ms(lambda: et.compress(data, backend=backend), iters)
                 dec = wall_ms(lambda: et.decompress(blob, backend=backend), iters)
+                enc_ms[name, backend] = enc
                 dec_ms[name]["onepass" if backend == "device" else "host backend"] = dec
                 line.append(f"{backend}: compress {enc:.3f} ms ({len(data) / enc / 1e3:.1f} "
                             f"MB/s), decompress {dec:.3f} ms ({len(data) / dec / 1e3:.1f} MB/s)")
-            print(f"[e2e] {name}: {len(data)} B -> {len(blob)} B, .et == host, round trip ok | "
+            print(f"[e2e] {name}: {len(data)} B -> {len(blob)} B, .et == host, round trip ok, "
+                  f"tiles: decode {dec_tiles}, encode {enc_tiles} | "
                   f"{' | '.join(line)} | warm median of {iters} | {card}")
 
     def two_pass_path(route: str):
@@ -497,10 +528,83 @@ def main(argv: list[str]) -> int:
             if big and route != "host":
                 continue  # int32 rows of every byte: 100 MB runs through "host" only
             blob = e2e_blobs[name]
-            require(et.decompress(blob, expand=route) == data,
+            require(et.decompress(blob, backend="device", expand=route) == data,
                     f"{name}: expand={route} round trip differs")
-            dec_ms[name][route] = wall_ms(lambda: et.decompress(blob, expand=route),
-                                          1 if big else 5)
+            dec_ms[name][route] = wall_ms(
+                lambda: et.decompress(blob, backend="device", expand=route), 1 if big else 5)
+
+    def tiles_path():
+        """Narrow tiles (many tile boundaries, each tile's fetch behind the
+        next tile's decode) and the peak device memory at two widths."""
+        for name, tile_lanes in (("text 100 MB", 8192), ("skewed 5 MB", 1024)):
+            table, n, buf = body_for(e2e_blobs[name])
+            syncs = cuda_fsm8.sync_pass.launches
+            out = decode8.decode_body_device_tiled(buf, table, n, device=DEV,
+                                                   tile_lanes=tile_lanes)
+            tiles = cuda_fsm8.sync_pass.launches - syncs
+            lanes = -(-buf.size // decode8.DEFAULT_CHUNK_BYTES)
+            want = -(-lanes // tile_lanes)
+            require(tiles == want, f"{name}: {tiles} tiles of {tile_lanes} lanes, want {want}")
+            require(out.tobytes() == data_of[name], f"{name}: {tile_lanes}-lane tiles differ")
+            print(f"[tiles] {name} body {buf.size} B in {tiles} tiles of {tile_lanes} lanes: "
+                  f"bytes exact | {card}")
+        blob = e2e_blobs["text 100 MB"]
+        table, n, buf = body_for(blob)
+        peaks = {}
+        for label, tile_lanes in ((f"default ({decode8.TILE_LANES} lanes)", None),
+                                  ("8192 lanes", 8192)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            if tile_lanes is None:
+                require(et.decompress(blob, backend="device") == data_of["text 100 MB"],
+                        "text 100 MB: round trip differs")
+            else:
+                decode8.decode_body_device_tiled(buf, table, n, device=DEV, tile_lanes=tile_lanes)
+            torch.cuda.synchronize()
+            peaks[label] = torch.cuda.max_memory_allocated() - base
+        print(f"[tiles] text 100 MB decompress ({buf.size} B body), peak device memory above "
+              f"the {base} B held before the call (torch.cuda.max_memory_allocated): "
+              + ", ".join(f"{k} tiles {v} B" for k, v in peaks.items()) + f" | {card}")
+
+    def auto_path():
+        require(api._h2d_fast(), "the host-to-device probe says the card's link is slow")
+        for name, want in (("text 5.2 MB", "host"), ("text 100 MB", "device")):
+            data, blob = data_of[name], e2e_blobs[name]
+            picks = (api._pick_backend(None, len(data)), api._pick_backend(None, len(blob)))
+            require(picks == (want, want), f"{name}: auto picks {picks}, want {want}")
+            before = sum(fn.launches for fn in KERNELS)
+            require(et.compress(data) == blob, f"{name}: auto .et differs")
+            require(et.decompress(blob) == data, f"{name}: auto round trip differs")
+            launched = sum(fn.launches for fn in KERNELS) - before
+            require((launched > 0) == (want == "device"),
+                    f"{name}: auto launched {launched} kernels, picking {want}")
+            iters = 2 if len(data) > 20 * MB else 5
+            enc, dec = wall_ms(lambda: et.compress(data), iters), \
+                wall_ms(lambda: et.decompress(blob), iters)
+            print(f"[auto] {name}: picks {want} (compress of {len(data)} B, decompress of "
+                  f"{len(blob)} B) | auto: compress {enc:.3f} ms, decompress {dec:.3f} ms | "
+                  f"device: compress {enc_ms[name, 'device']:.3f}, decompress "
+                  f"{dec_ms[name]['onepass']:.3f} | host: compress {enc_ms[name, 'host']:.3f}, "
+                  f"decompress {dec_ms[name]['host backend']:.3f} | warm median of {iters} "
+                  f"| {card}")
+
+    def cli_path():
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            for name, flags in (("text 100 MB", []), ("text 5.2 MB", ["--backend", "device"])):
+                src = Path(tmp) / f"{name.replace(' ', '_')}.txt"
+                src.write_bytes(data_of[name])
+                t0 = time.perf_counter()
+                require(cli.main([*flags, "c", str(src)]) == 0, f"cli c {name} failed")
+                require(cli.main([*flags, "d", f"{src}.et"]) == 0, f"cli d {name} failed")
+                wall = (time.perf_counter() - t0) * 1e3
+                require(Path(f"{src}.et").read_bytes() == e2e_blobs[name],
+                        f"cli {name}: .et differs from the host backend's")
+                require((src.parent / f"decoded_{src.name}").read_bytes() == data_of[name],
+                        f"cli {name}: decoded file differs")
+                print(f"[cli] {' '.join(flags) or '(auto)'} c + d {name}: exit 0, .et == host, "
+                      f"decoded == input, {wall:.1f} ms both | {card}")
 
     launches = run_path("device", device_path)
     for route in ("split", "fused", "host"):
@@ -512,16 +616,21 @@ def main(argv: list[str]) -> int:
                           for route, ms in dec_ms[name].items())
               + (" | warm median of 2 (expand=host: 1 run)" if len(data) > 20 * MB
                  else " | warm median of 5") + f" | {card}")
+    for path, drive in (("tiles", tiles_path), ("auto", auto_path), ("cli", cli_path)):
+        counts = run_path(path, drive)
+        launches = {fn: launches[fn] + counts[fn] for fn in KERNELS}
 
-    # 5. stages of the device backend (and, with --profile, the device's busy share)
+    # 5. stages of the device backend (and, with ENTREEPY_PROFILE, the device's busy share)
     for name, data in cases:
         blob = e2e_blobs[name]
         iters = 1 if len(data) > 20 * MB else 5
-        stage_line(f"{name} compress", lambda: et.compress(data), iters, card)
-        stage_line(f"{name} decompress", lambda: et.decompress(blob), iters, card)
+        stage_line(f"{name} compress", lambda: et.compress(data, backend="device"), iters, card)
+        stage_line(f"{name} decompress", lambda: et.decompress(blob, backend="device"), iters,
+                   card)
     for route in ("split", "fused", "host"):
         stage_line(f"text 5.2 MB decompress expand={route}",
-                   lambda: et.decompress(e2e_blobs["text 5.2 MB"], expand=route), 5, card)
+                   lambda: et.decompress(e2e_blobs["text 5.2 MB"], backend="device",
+                                         expand=route), 5, card)
     if profile:
         profile_round_trip(text, card)
     require("jax" not in sys.modules, "the port imported jax")

@@ -1,38 +1,135 @@
 """Top-level bytes-in/bytes-out API of the PyTorch port.
 
-Two backends with byte-identical output:
+Backends with byte-identical output:
 
-* ``device`` (the default) — the port's kernels on a CUDA device
-  (``device="cuda"`` unless one is passed). ``device="cpu"`` runs the
-  kernels' plain PyTorch versions instead. Without a CUDA device and without
-  an explicit ``device``, the call raises: nothing falls back to the CPU.
-  ``decompress``'s ``expand`` picks the decode route on the device (see
-  ``ops.decode8``): "onepass" (default), the two-pass "split" and "fused",
-  or "host" (device state passes, host expansion).
+* ``device`` — the port's kernels on a CUDA device (``device="cuda"``
+  unless one is passed). ``device="cpu"`` runs the kernels' plain PyTorch
+  versions instead. Passing ``device`` selects this backend when
+  ``backend`` is None, and is a ValueError with ``host``. Without a CUDA device and without an explicit
+  ``device``, the call raises :class:`NoCudaDeviceError`: nothing falls back
+  to the CPU. ``decompress``'s ``expand`` picks the decode route on the
+  device (see ``ops.decode8``): "onepass" (default), the two-pass "split"
+  and "fused", or "host" (device state passes, host expansion).
 * ``host`` — the JAX package's framework-free host codec
   (``entreepy_tpu.format``), which never imports JAX.
-
-Auto-routing (``backend=None``) and the ``sharded`` backend are not ported.
+* ``None`` (the default) — auto, the JAX package's rule: the native host
+  runtime below ``POD_DEVICE_MIN`` bytes; at or above it the device backend
+  when a one-shot host-to-device probe (cached per process, 60 s deadline)
+  beats ``H2D_MIN_BYTES_PER_S``, else host. Without a CUDA device the probe
+  is False, so auto runs on the host. ``ENTREEPY_DEVICE_MIN=<bytes>``
+  replaces the threshold at call time. Where the JAX package picks
+  ``sharded`` (more than one device), the port picks ``device``: the
+  ``sharded`` backend is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
+import threading
+import time
+import warnings
 from pathlib import Path
 
 import torch
 
+from entreepy_tpu import runtime
 from entreepy_tpu.api import inspect  # noqa: F401  (format-only, re-exported)
 from entreepy_tpu.format import compress_host, decompress_host
 
+DEVICE_MIN_BYTES = 1 << 16
+# Auto-routing floor when the native host runtime exists: calls below it are
+# dominated by transfer and launch overhead the host codec does not pay.
+POD_DEVICE_MIN = 8 << 20
+# A host-to-device link must beat this for auto to route to the device.
+H2D_MIN_BYTES_PER_S = 100e6
 
-def _pick_backend(backend: str) -> str:
+_h2d_fast_cache: list = []  # [bool], measured once per process
+
+
+class NoCudaDeviceError(RuntimeError):
+    """The device backend was asked for ``cuda`` and no CUDA device exists."""
+
+
+def _h2d_probe() -> bool:
+    """Time a 1 MiB host-to-device copy with a value-dependent readback.
+    True only on a CUDA device whose link beats H2D_MIN_BYTES_PER_S."""
+    if not torch.cuda.is_available():
+        return False
+    arr = torch.ones(1 << 18, dtype=torch.float32)  # 1 MiB
+    int(arr.to("cuda").sum())  # warm the context and the copy path
+    t0 = time.perf_counter()
+    int((arr + 1).to("cuda").sum())
+    dt = time.perf_counter() - t0
+    return arr.numel() * arr.element_size() / max(dt, 1e-9) >= H2D_MIN_BYTES_PER_S
+
+
+def _h2d_fast(deadline_s: float = 60.0) -> bool:
+    """One-shot host-to-device bandwidth probe, cached per process, run in
+    a daemon thread with a deadline: a device that hangs at initialization
+    must leave auto routing on the host, not block the call."""
+    if not _h2d_fast_cache:
+        result = [False]
+
+        def probe():
+            try:
+                result[0] = _h2d_probe()
+            except Exception as e:  # a broken device link routes to host
+                warnings.warn(f"host-to-device probe failed ({e!r}); auto routes to host",
+                              stacklevel=2)
+
+        t = threading.Thread(target=probe, daemon=True)
+        t.start()
+        t.join(timeout=deadline_s)
+        _h2d_fast_cache.append(result[0])
+    return _h2d_fast_cache[0]
+
+
+def _device_min(n_bytes: int = 0) -> int:
+    env = os.environ.get("ENTREEPY_DEVICE_MIN")
+    if env is not None:
+        try:
+            return int(env)
+        except ValueError:
+            warnings.warn(
+                f"ignoring non-integer ENTREEPY_DEVICE_MIN={env!r} (want bytes)",
+                stacklevel=2,
+            )
+    if not runtime.available():
+        return DEVICE_MIN_BYTES
+    if n_bytes < POD_DEVICE_MIN:
+        return 1 << 62  # the host wins below it: no probe for small calls
+    return POD_DEVICE_MIN if _h2d_fast() else 1 << 62
+
+
+def _pick_backend(backend: str | None, n_bytes: int) -> str:
+    """"host" or "device" for a call of ``n_bytes`` (see the module
+    docstring). Auto picks the device backend only when a CUDA device
+    exists."""
     if backend in ("device", "host"):
         return backend
-    if backend in (None, "sharded"):
+    if backend == "sharded":
         raise NotImplementedError(
-            f"backend={backend!r} is not ported yet; pass 'device' or 'host'"
+            "backend='sharded' is not ported yet; pass 'device', 'host' or None"
         )
-    raise ValueError(f"unknown backend {backend!r} (want 'device' or 'host')")
+    if backend is not None:
+        raise ValueError(
+            f"unknown backend {backend!r} (want None, 'host', 'device', 'sharded')"
+        )
+    if n_bytes < _device_min(n_bytes) or not torch.cuda.is_available():
+        return "host"
+    return "device"
+
+
+def _call_backend(backend: str | None, device, n_bytes: int) -> str:
+    """The backend of a call: an explicit ``device`` is the device
+    backend's device, so under auto it selects that backend, and with
+    ``backend="host"`` it is an error (never silently dropped)."""
+    if device is not None:
+        if backend == "host":
+            raise ValueError(f"device={device!r} is for backend='device'; "
+                             "backend='host' runs no device")
+        backend = backend or "device"
+    return _pick_backend(backend, n_bytes)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -42,7 +139,7 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev} (want cuda or cpu)")
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise NoCudaDeviceError(
             "backend='device' needs a CUDA device and torch.cuda.is_available() "
             "is False; pass device='cpu' to run the kernels' plain PyTorch "
             "versions, or backend='host'"
@@ -50,14 +147,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def compress(data: bytes, *, strict: bool = True, backend: str = "device",
+def compress(data: bytes, *, strict: bool = True, backend: str | None = None,
              device=None, progress=None) -> bytes:
     """Compress ``data`` into a complete .et file (magic, dict, packed body).
 
-    backend: "device" or "host"; device: the torch device of the device
-    backend (default ``cuda``). progress: optional ``(pct, msg)`` callback.
+    backend: None (auto), "device" or "host"; device: the torch device of
+    the device backend (default ``cuda``; passing one selects that
+    backend). progress: optional ``(pct, msg)`` callback.
     """
-    if _pick_backend(backend) == "host":
+    if _call_backend(backend, device, len(data)) == "host":
         return compress_host(data, strict=strict, progress=progress)
     from .ops.encode import compress_device
 
@@ -69,19 +167,21 @@ def compress(data: bytes, *, strict: bool = True, backend: str = "device",
     return out
 
 
-def decompress(et: bytes, *, backend: str = "device", device=None,
+def decompress(et: bytes, *, backend: str | None = None, device=None,
                expand: str = "onepass", progress=None) -> bytes:
     """Decompress a complete .et file back to the original bytes.
 
-    expand: the device backend's decode route — "onepass" (default), "split"
-    or "fused" (two-pass, split or full expand table; the JAX package's
-    ENTREEPY_EXPAND), or "host" (two-pass, states expanded on the host; its
-    ENTREEPY_DEVICE_E2E=0). Any other value raises ValueError.
+    backend: None (auto), "device" or "host"; device: as in
+    :func:`compress`. expand: the device backend's decode route —
+    "onepass" (default), "split" or "fused" (two-pass, split or full expand
+    table; the JAX package's ENTREEPY_EXPAND), or "host" (two-pass, states
+    expanded on the host; its ENTREEPY_DEVICE_E2E=0). Any other value
+    raises ValueError.
     """
     from .ops.decode8 import check_expand, decompress_device
 
     check_expand(expand)
-    if _pick_backend(backend) == "host":
+    if _call_backend(backend, device, len(et)) == "host":
         return decompress_host(et, progress=progress)
     dev = resolve_device(device)
     tick = progress or (lambda pct, msg: None)

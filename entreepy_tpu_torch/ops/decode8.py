@@ -20,13 +20,19 @@ route (``expand``; the JAX package's ``ENTREEPY_EXPAND`` and
   per body byte, and the host runtime expands them
   (:func:`decode_body_device`).
 
-The device routes fetch the compacted plane and the per-lane metadata and
-apply the serial-exact accept/reject on the host. They run untiled up to the
-int32 position bound; the streaming tiled route (``decode_body_device_tiled``)
-is not ported.
+The device routes fetch the compacted plane, transposed lane-major on the
+device, and the per-lane metadata, and apply the serial-exact accept/reject
+on the host. The one-pass route streams through
+:func:`decode_body_device_tiled`: tiles of up to ``TILE_LANES`` lanes
+decoded in stream order, each tile's lane 0 entering at the previous tile's
+last exit, tile-local positions, and each tile's fetch overlapped with the
+next tile's decode. The two-pass device routes run untiled up to the int32
+position bound.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -57,6 +63,10 @@ NO_INVALID = 1 << 30  # w_inv of a lane without an invalid transition
 MAX_UNTILED_BYTES = (1 << 31) - 1
 # Decode routes of ``decompress_device`` (see the module docstring).
 EXPAND_MODES = ("onepass", "split", "fused", "host")
+# Lanes per tile of the streaming one-pass decode: 65536 lanes x 512 B chunks
+# = 32 MB of compressed body per tile, so the device working set is bounded
+# by the tile, not the body.
+TILE_LANES = 65536
 
 
 def bytes_to_cols(padded: np.ndarray, lanes: int, k: int, device) -> torch.Tensor:
@@ -65,20 +75,22 @@ def bytes_to_cols(padded: np.ndarray, lanes: int, k: int, device) -> torch.Tenso
 
 
 def _fixed_point(xs: torch.Tensor, next_state: torch.Tensor, n_real_lanes: int,
-                 entry0: int, run_pass):
+                 entry0: int | torch.Tensor, run_pass):
     """Entry states of xs uint8[K, lanes] to their fixed point: the suffix
     sync pass guesses each lane's entry, then ``run_pass(entries) -> (out,
     exits int32[lanes])`` runs until no real lane's entry changes. Lanes from
     ``n_real_lanes`` on are padding and stay out of the convergence test;
-    ``entry0`` pins lane 0's entry state. Returns (out, exits, unconverged
-    bool) of the last pass.
+    ``entry0`` pins lane 0's entry state: an int, or a one-element int32
+    tensor on the device (a previous tile's exit, read without a host sync).
+    Returns (out, exits, unconverged bool) of the last pass.
 
     The fixed point is a Python loop with one small device-to-host check per
     pass; it normally runs one pass (the suffix guess is near exact)."""
     k, lanes = xs.shape
     dev = xs.device
     real = torch.arange(lanes, device=dev) < n_real_lanes
-    e0 = torch.full((1,), entry0, dtype=torch.int32, device=dev)
+    e0 = (entry0.reshape(1) if torch.is_tensor(entry0)
+          else torch.full((1,), entry0, dtype=torch.int32, device=dev))
     w = min(SYNC_WINDOW, k)
     suffix_exits = sync_pass(xs[k - w:], next_state,
                              torch.zeros(lanes, dtype=torch.int32, device=dev))
@@ -97,7 +109,7 @@ def _fixed_point(xs: torch.Tensor, next_state: torch.Tensor, n_real_lanes: int,
 def fsm8_decode_fused(cols: torch.Tensor, next_state: torch.Tensor,
                       t_fused: torch.Tensor, n_real_lanes: int, m: int,
                       mt: int, s: int, *, packed: bool = False,
-                      n_valid: int | None = None, entry0: int = 0):
+                      n_valid: int | None = None, entry0: int | torch.Tensor = 0):
     """One-pass decode of cols uint8[lanes, K] -> (vals, exits int32[lanes],
     unconverged bool). vals is int32[K, m+1, lanes], or with ``packed``
     MASKED one-word rows int32[K, lanes] (``n_valid`` required). Padding
@@ -183,6 +195,22 @@ def _sub_width(k: int) -> int:
     return SUB_BYTES if k % SUB_BYTES == 0 else k
 
 
+def _rows_plane(counts: torch.Tensor, inv: torch.Tensor, syms: torch.Tensor, m: int):
+    """Masked unpacked rows -> the compacted plane of
+    :func:`compact_symbols_device`, its cap sized by :func:`sym_cap`."""
+    return compact_symbols_device(counts, inv, syms, m, sym_cap(counts, m))
+
+
+def onepass_plane(vals: torch.Tensor, m: int, packed: bool, n_valid: int):
+    """Fused-pass rows -> (plane, mini_tot, lane_tot, w_inv): the dense
+    compaction of MASKED packed words (m <= 3), else the real-byte mask
+    (lane-linear position < ``n_valid``) and the compaction kernel."""
+    if packed:
+        plane, mini_tot, lane_tot, w_inv = compact_symbols_dense(vals, m)
+        return plane, mini_tot.to(torch.uint8), lane_tot, w_inv  # counts <= m <= 3
+    return _rows_plane(*_expand_mask(vals[:, 0], vals[:, 1:].to(torch.uint8), n_valid), m)
+
+
 def sym_cap(counts: torch.Tensor, m: int) -> int:
     """Per-subgroup symbol cap for :func:`compact_symbols_device`: fetches
     the subgroup totals' max and rounds it up to CAP_SYM_ROUND."""
@@ -239,30 +267,40 @@ def validate_chunk_meta(counts: np.ndarray, w_inv: np.ndarray, n_symbols: int) -
         raise ValueError("invalid bitstream: unreachable trie edge")
 
 
+def lane_major(plane, mini_tot, lane_tot, w_inv):
+    """A compacted plane and its subgroup totals transposed on the device to
+    lane-major (plane [lanes, Gs*cap_g], mini_tot [lanes, Gs]), so the
+    host's extraction reads each lane's symbols contiguously."""
+    return plane.t().contiguous(), mini_tot.t().contiguous(), lane_tot, w_inv
+
+
 def extract_plane_symbols(plane, mini_tot) -> np.ndarray:
-    """Compacted symbol plane -> flat uint8 symbols in (lane, subgroup,
-    slot) stream order (boolean extraction flattens row-major)."""
-    mt = np.asarray(mini_tot, dtype=np.int64)  # [Gs, lanes]
-    gs, lanes = mt.shape
-    plane_np = np.asarray(plane).reshape(gs, -1, lanes)  # [Gs, cap_g, lanes]
-    cap_g = plane_np.shape[1]
-    arr = plane_np.transpose(2, 0, 1)  # [lanes, Gs, cap_g]
-    mask = np.arange(cap_g, dtype=np.int64)[None, None, :] < mt.T[:, :, None]
+    """Lane-major compacted symbol plane (:func:`lane_major`) -> flat uint8
+    symbols in (lane, subgroup, slot) stream order (boolean extraction
+    flattens row-major)."""
+    mt = np.asarray(mini_tot, dtype=np.int64)  # [lanes, Gs]
+    lanes, gs = mt.shape
+    arr = np.asarray(plane).reshape(lanes, gs, -1)  # [lanes, Gs, cap_g]
+    mask = np.arange(arr.shape[2], dtype=np.int64)[None, None, :] < mt[:, :, None]
     return arr[mask]
 
 
-def assemble_symbol_plane(
-    plane, mini_tot, lane_tot, w_inv, n_symbols, table, n_body
+def assemble_symbol_planes(
+    planes, minis, lane_tots, w_invs, n_symbols, table, n_body
 ) -> np.ndarray:
-    """Validate + extract a fetched compacted symbol plane: serial-exact
-    accept/reject over the per-lane metadata, live prefixes in stream order,
-    trim to ``n_symbols``, exact-bit invariant."""
+    """Validate + extract fetched lane-major compacted symbol planes, one
+    list entry per tile (a singleton on the untiled routes): serial-exact accept/reject over
+    the concatenated per-lane metadata, each plane's live prefixes in stream
+    order, trim to ``n_symbols``, exact-bit invariant."""
     with phase("host_validate"):
-        w_inv = np.array(w_inv, dtype=np.int64)
+        lane_tot = np.concatenate([np.asarray(c, dtype=np.int64) for c in lane_tots])
+        w_inv = np.concatenate([np.asarray(w, dtype=np.int64) for w in w_invs])
         w_inv[w_inv >= NO_INVALID] = -1
-        validate_chunk_meta(np.asarray(lane_tot, dtype=np.int64), w_inv, n_symbols)
+        validate_chunk_meta(lane_tot, w_inv, n_symbols)
     with phase("host_extract"):
-        out = extract_plane_symbols(plane, mini_tot)[:n_symbols]
+        out = np.concatenate(
+            [extract_plane_symbols(p, mt) for p, mt in zip(planes, minis)]
+        )[:n_symbols]
     if out.size < n_symbols:
         raise ValueError(
             f"bitstream ended early: decoded {out.size} of {n_symbols} symbols"
@@ -315,10 +353,15 @@ def decode_body_device_full(
     """Decode a packed body on ``device`` -> uint8[n_symbols] (host array):
     FSM passes, symbol expansion and compaction on the device; the host
     fetches the compacted plane and the per-lane metadata. ``expand`` picks
-    the one-pass route or a two-pass one with the split or the full expand
+    the one-pass route, which streams in tiles
+    (:func:`decode_body_device_tiled`, one tile up to ``TILE_LANES``
+    lanes), or a two-pass one, untiled, with the split or the full expand
     table ("onepass", "split" or "fused")."""
     if expand not in ("onepass", "split", "fused"):
         raise ValueError(f"decode_body_device_full: unknown expand route {expand!r}")
+    if expand == "onepass":
+        return decode_body_device_tiled(body, table, n_symbols, device=device,
+                                        chunk_bytes=chunk_bytes)
     if n_symbols == 0:
         return np.zeros(0, dtype=np.uint8)
     buf = _body_buf(body)
@@ -326,46 +369,109 @@ def decode_body_device_full(
     if lanes * chunk_bytes > MAX_UNTILED_BYTES:
         raise NotImplementedError(
             f"{buf.size} B body exceeds the untiled device decode's int32 "
-            "positions; the streaming tiled route (decode_body_device_tiled, "
-            "entreepy_tpu/ops/decode8.py:1026-1155) is not ported yet"
+            f"positions; expand={expand!r} has no tiled route (only 'onepass' "
+            "streams in tiles)"
         )
-    onepass = expand == "onepass"
     with phase("decode_tables"):
-        fsm = build_byte_fsm(table)
-        tables = (decode_tables(fsm, device) if onepass
-                  else expand_tables(fsm, device, split=expand == "split"))
-    m = tables.m
-    packed = onepass and m <= 3
+        tables = expand_tables(build_byte_fsm(table), device, split=expand == "split")
     cols = _upload_body(buf, lanes, chunk_bytes, device)
     with phase("device_fsm8_decode", n_symbols):
-        if onepass:
-            vals, _exits, unconverged = fsm8_decode_fused(
-                cols, tables.next_state, tables.fused, lanes, m, tables.mt, tables.s,
-                packed=packed, n_valid=buf.size,
-            )
-        else:
-            xs = cols.t().contiguous()  # [K, lanes]
-            states, unconverged = fsm8_decode(xs, tables.next_state, lanes)
+        xs = cols.t().contiguous()  # [K, lanes]
+        states, unconverged = fsm8_decode(xs, tables.next_state, lanes)
     if unconverged:
         return decode_host(buf, table, n_symbols)
     with phase("device_expand", n_symbols):
-        if packed:
-            plane, mini_tot, lane_tot, w_inv = compact_symbols_dense(vals, m)
-            mini_tot = mini_tot.to(torch.uint8)  # counts <= m <= 3
-        else:
-            if onepass:
-                counts, inv, syms = _expand_mask(
-                    vals[:, 0, :], vals[:, 1:, :].to(torch.uint8), buf.size
-                )
-            else:
-                counts, inv, syms = run_expand(xs, states, tables, buf.size)
-            cap_sym = sym_cap(counts, m)  # small sizing fetch
-            plane, mini_tot, lane_tot, w_inv = compact_symbols_device(
-                counts, inv, syms, m, cap_sym
-            )
+        plane = lane_major(*_rows_plane(*run_expand(xs, states, tables, buf.size), tables.m))
     with phase("device_sym_fetch", n_symbols):
-        fetched = [t.cpu().numpy() for t in (plane, mini_tot, lane_tot, w_inv)]
-    return assemble_symbol_plane(*fetched, n_symbols, table, buf.size)
+        fetched = _fetch_async(plane)()
+    return assemble_symbol_planes(*([t] for t in fetched), n_symbols, table, buf.size)
+
+
+@functools.cache
+def _copy_stream(device: torch.device) -> torch.cuda.Stream:
+    return torch.cuda.Stream(device)
+
+
+def _fetch_async(tensors):
+    """Start copying ``tensors`` to the host behind the work queued so far,
+    without blocking; returns a callable that waits for the copy and gives
+    the numpy arrays. On CUDA a side stream waits on the current one, copies
+    into pinned host tensors and records an event, so the copy overlaps
+    whatever is queued next; the source tensors are marked as used by that
+    stream, so their memory is not reused before the copy ends. CPU tensors
+    are already on the host."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        return lambda: [t.numpy() for t in tensors]
+    side = _copy_stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    with torch.cuda.stream(side):
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+            t.record_stream(side)
+        done = torch.cuda.Event()
+        done.record(side)
+
+    def wait():
+        done.synchronize()
+        return [h.numpy() for h in host]
+
+    return wait
+
+
+def decode_body_device_tiled(
+    body: bytes | np.ndarray,
+    table: CodeTable,
+    n_symbols: int,
+    *,
+    device,
+    chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+    tile_lanes: int | None = None,
+) -> np.ndarray:
+    """The one-pass decode -> uint8[n_symbols] (host array): the body's
+    lanes run in tiles of ``tile_lanes`` (default TILE_LANES; a test hook,
+    not an option), in stream order, so each tile's lane 0 enters EXACTLY
+    at the previous tile's last exit (a device tensor: the chaining reads
+    nothing back) and self-sync runs within a tile. Per tile: upload, fused
+    passes to the fixed point, compaction (:func:`onepass_plane`), the
+    lane-major transpose, then the fetch of its plane, which overlaps the
+    next tile's decode (depth-2 pipeline). Byte
+    positions are tile-local, so no int32 wraps at any body size. The
+    accept/reject and the exact-bit check run once over the concatenated
+    per-tile metadata. A tile whose self-sync does not converge sends the
+    whole body to the exact serial decoder (:func:`decode_host`)."""
+    if n_symbols == 0:
+        return np.zeros(0, dtype=np.uint8)
+    buf = _body_buf(body)
+    lanes = max(1, -(-buf.size // chunk_bytes))
+    t_lanes = max(1, tile_lanes or TILE_LANES)
+    with phase("decode_tables"):
+        tables = decode_tables(build_byte_fsm(table), device)
+    m = tables.m
+    packed = m <= 3
+    fetched, pending, entry0 = [], None, 0
+    for l0 in range(0, lanes, t_lanes):
+        tl = min(t_lanes, lanes - l0)
+        seg = buf[l0 * chunk_bytes:(l0 + tl) * chunk_bytes]  # seg.size: the tile's n_valid
+        cols = _upload_body(seg, tl, chunk_bytes, device)
+        with phase("device_fsm8_decode", n_symbols):
+            vals, exits, unconverged = fsm8_decode_fused(
+                cols, tables.next_state, tables.fused, tl, m, tables.mt, tables.s,
+                packed=packed, n_valid=seg.size, entry0=entry0,
+            )
+        if unconverged:
+            return decode_host(buf, table, n_symbols)
+        with phase("device_expand", n_symbols):
+            plane = lane_major(*onepass_plane(vals, m, packed, seg.size))
+        if pending is not None:
+            with phase("device_sym_fetch", n_symbols):
+                fetched.append(pending())
+        pending = _fetch_async(plane)
+        entry0 = exits[-1:]
+    with phase("device_sym_fetch", n_symbols):
+        fetched.append(pending())
+    return assemble_symbol_planes(*zip(*fetched), n_symbols, table, buf.size)
 
 
 def expand_states(states: np.ndarray, body: np.ndarray, fsm: ByteFsm,

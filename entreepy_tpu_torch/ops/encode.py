@@ -1,10 +1,14 @@
 """Single-device compress pipeline: histogram, block pack and plane compaction
 on the device; code construction and bit-granular stitch on the host.
 
-Counterpart of ``entreepy_tpu/ops/encode.py``, untiled: the whole input
-stays on the device. Block size changes only device efficiency — the
-stitched ``.et`` output is byte-identical for every block size (and to the
-host codec).
+Counterpart of ``entreepy_tpu/ops/encode.py``. An input of up to
+``tile_blocks`` blocks is uploaded once and shared by the histogram and the
+pack; a larger one streams through the device in tiles of that many blocks,
+one upload per tile for the histogram and one for the pack, so the device
+working set is bounded by the tile. Blocks are independent, so tiling is
+exact. Block size and tile width change only device efficiency — the
+stitched ``.et`` output is byte-identical for every value (and to the host
+codec).
 """
 
 from __future__ import annotations
@@ -30,6 +34,9 @@ from .bitpack import (
 from .cuda_pack import pack_blocks
 
 DEFAULT_BLOCK_BYTES = 1024
+# Blocks per tile of the streaming encode: 32 MB of input at the default
+# block size.
+TILE_BLOCKS = (32 << 20) // DEFAULT_BLOCK_BYTES
 
 
 def upload(arr: np.ndarray, device) -> torch.Tensor:
@@ -82,17 +89,49 @@ def encode_blocks_device(data: torch.Tensor, table: CodeTable,
     return flat, nwords, bit_lens_np
 
 
+def _uploads(arr: np.ndarray, tile_bytes: int, device):
+    """``arr`` in slices of ``tile_bytes``, each uploaded to ``device`` as
+    it is reached."""
+    for off in range(0, max(arr.size, 1), tile_bytes):
+        seg = arr[off:off + tile_bytes]
+        with phase("input_upload", seg.size):
+            tile = upload(seg, device)
+        yield tile
+
+
+def histogram_tiles(tiles) -> np.ndarray:
+    """int64[256] histogram of the device tiles, summed on the host."""
+    total = np.zeros(256, dtype=np.int64)
+    for t in tiles:
+        with phase("device_histogram", t.numel()):
+            total += histogram_on_device(t)
+    return total
+
+
+def encode_tiles(tiles, table: CodeTable, block_bytes: int = DEFAULT_BLOCK_BYTES):
+    """:func:`encode_blocks_device` of each device tile, concatenated: each
+    tile's flat payload trimmed to its ``nwords.sum()`` words, so the
+    stitch's cumsum(nwords) offsets stay aligned across tiles."""
+    flats, nwords, bit_lens = zip(*(encode_blocks_device(t, table, block_bytes) for t in tiles))
+    return (np.concatenate([f[: int(nw.sum())] for f, nw in zip(flats, nwords)]),
+            np.concatenate(nwords), np.concatenate(bit_lens))
+
+
 def compress_device(data: bytes, *, device, strict: bool = True,
-                    block_bytes: int = DEFAULT_BLOCK_BYTES) -> bytes:
-    """bytes -> complete .et file, byte-identical to the host codec's."""
+                    block_bytes: int = DEFAULT_BLOCK_BYTES,
+                    tile_blocks: int | None = None) -> bytes:
+    """bytes -> complete .et file, byte-identical to the host codec's. Inputs
+    past ``tile_blocks`` blocks (default TILE_BLOCKS; a test hook, not an
+    option) stream in tiles."""
     arr = np.frombuffer(data, dtype=np.uint8)
-    with phase("input_upload", arr.size):
-        dev_data = upload(arr, device)
-    with phase("device_histogram", arr.size):
-        counts = histogram_on_device(dev_data)
+    tile_bytes = max(1, tile_blocks or TILE_BLOCKS) * block_bytes
+    # one tile: a single upload shared by both passes
+    one = list(_uploads(arr, tile_bytes, device)) if arr.size <= tile_bytes else None
+    counts = histogram_tiles(one or _uploads(arr, tile_bytes, device))
     with phase("code_table"):
         table = build_code_table(counts, strict=strict)
-    flat, nwords, bit_lens = encode_blocks_device(dev_data, table, block_bytes)
+    flat, nwords, bit_lens = encode_tiles(one or _uploads(arr, tile_bytes, device),
+                                          table, block_bytes)
     with phase("stitch"):
         words, total_bits = stitch_flat_payload(flat, nwords, bit_lens)
     with phase("serialize"):

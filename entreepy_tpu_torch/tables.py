@@ -101,9 +101,16 @@ def code_tensors(table: CodeTable, device) -> tuple[torch.Tensor, torch.Tensor]:
     return codes, lengths
 
 
-def _fsm_and_body(et: bytes) -> tuple[ByteFsm, np.ndarray]:
+def body_for(et: bytes) -> tuple[CodeTable, int, np.ndarray]:
+    """(code table, symbol count, packed body uint8[n_body] on the host) of a
+    complete .et file: the arguments of the decode drivers."""
     hdr = parse_header(et)
-    return build_byte_fsm(hdr.table), np.frombuffer(et, dtype=np.uint8)[hdr.body_start:]
+    return hdr.table, hdr.body_len, np.frombuffer(et, dtype=np.uint8)[hdr.body_start:]
+
+
+def _fsm_and_body(et: bytes) -> tuple[ByteFsm, np.ndarray]:
+    table, _, body = body_for(et)
+    return build_byte_fsm(table), body
 
 
 def decode_tables_for(et: bytes, device) -> tuple[DecodeTables, np.ndarray]:

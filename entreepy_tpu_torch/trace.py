@@ -8,11 +8,17 @@ stage instead ends with a device synchronize and adds its host-clock time to
 a dict, so asynchronous device work is charged to the stage that queued it.
 That costs one ``torch.cuda.synchronize()`` per stage, about a dozen per
 call, and is off unless a caller asks for it.
+
+:func:`maybe_profile` is the ``torch.profiler`` twin of the JAX package's:
+with ``ENTREEPY_PROFILE=<dir>`` it traces the block (host, and the card's
+kernels and copies when there is one) and writes a Chrome/TensorBoard
+trace into ``<dir>``; otherwise it does nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import torch
@@ -51,3 +57,22 @@ def record_stages():
         yield _stages
     finally:
         _stages = None
+
+
+@contextlib.contextmanager
+def maybe_profile():
+    """torch.profiler trace around the block when ENTREEPY_PROFILE=<dir> is
+    set (one ``*.pt.trace.json`` per block). Yields the profiler, whose
+    ``key_averages()`` hold the block's events once it ends, or None."""
+    out = os.environ.get("ENTREEPY_PROFILE")
+    if not out:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(out)) as prof:
+        yield prof

@@ -51,10 +51,10 @@ def _data(name: str, request) -> bytes:
 )
 def test_roundtrip_matches_jax(name, request):
     data = _data(name, request)
-    et = entreepy_tpu_torch.compress(data, device="cpu")
+    et = entreepy_tpu_torch.compress(data, backend="device", device="cpu")
     assert et == compress_host(data)
     assert et == entreepy_tpu.compress(data, backend="device")
-    assert entreepy_tpu_torch.decompress(et, device="cpu") == data
+    assert entreepy_tpu_torch.decompress(et, backend="device", device="cpu") == data
 
 
 @pytest.mark.parametrize("block_bytes", [64, 256, 1024, 4096])
@@ -77,8 +77,8 @@ def test_chunk_size_invariance(chunk_bytes, name, request):
 def test_golden_fixture(macbeth):
     golden = (DATA / "nice.shakespeare.et").read_bytes()
     assert len(golden) == 374
-    assert entreepy_tpu_torch.compress(macbeth, device="cpu") == golden
-    assert entreepy_tpu_torch.decompress(golden, device="cpu") == macbeth
+    assert entreepy_tpu_torch.compress(macbeth, backend="device", device="cpu") == golden
+    assert entreepy_tpu_torch.decompress(golden, backend="device", device="cpu") == macbeth
 
 
 def _outcome(fn, et: bytes):
@@ -99,7 +99,7 @@ def jax_full_route(monkeypatch):
 def test_truncated_body_same_error(cut, midsummer, jax_full_route):
     et = compress_host(midsummer)
     bad = et[: parse_header(et).body_start + cut]
-    got = _outcome(lambda b: entreepy_tpu_torch.decompress(b, device="cpu"), bad)
+    got = _outcome(lambda b: entreepy_tpu_torch.decompress(b, backend="device", device="cpu"), bad)
     want = _outcome(lambda b: entreepy_tpu.decompress(b, backend="device"), bad)
     assert isinstance(got, tuple) and "ended early" in got[1]
     assert got == want
@@ -116,7 +116,8 @@ def test_corrupt_body_same_outcome(name, seed, request, jax_full_route):
     for _ in range(8):
         pos = int(rng.integers(start + 5, len(et) - 16))
         bad = bytes(et[:pos]) + bytes([et[pos] ^ 0xFF]) + bytes(et[pos + 1:])
-        got = _outcome(lambda b: entreepy_tpu_torch.decompress(b, device="cpu"), bad)
+        got = _outcome(
+            lambda b: entreepy_tpu_torch.decompress(b, backend="device", device="cpu"), bad)
         assert got == _outcome(lambda b: entreepy_tpu.decompress(b, backend="device"), bad)
         rejected += isinstance(got, tuple)
     assert rejected >= 1
@@ -159,9 +160,10 @@ def test_device_backend_needs_cuda(monkeypatch):
     monkeypatch.setattr(encode, "compress_device", ran)
     monkeypatch.setattr(decode8, "decompress_device", ran)
     et = compress_host(b"abracadabra")
-    for call in (lambda: entreepy_tpu_torch.compress(b"abracadabra"),
-                 lambda: entreepy_tpu_torch.decompress(et),
-                 lambda: entreepy_tpu_torch.compress(b"abracadabra", device="cuda")):
+    for call in (lambda: entreepy_tpu_torch.compress(b"abracadabra", backend="device"),
+                 lambda: entreepy_tpu_torch.decompress(et, backend="device"),
+                 lambda: entreepy_tpu_torch.compress(b"abracadabra", backend="device",
+                                                     device="cuda")):
         with pytest.raises(RuntimeError, match="CUDA device"):
             call()
 
@@ -171,15 +173,17 @@ def test_backends_and_helpers(tmp_path, macbeth):
     et = compress_host(macbeth)
     assert entreepy_tpu_torch.decompress(et, backend="host") == macbeth
     assert entreepy_tpu_torch.inspect(et) == entreepy_tpu.inspect(et)
-    for bad, exc in ((None, NotImplementedError), ("sharded", NotImplementedError),
-                     ("tpu", ValueError)):
+    # backend=None routes (auto: the host codec for a small input)
+    assert entreepy_tpu_torch.compress(macbeth, backend=None) == et
+    assert entreepy_tpu_torch.decompress(et, backend=None) == macbeth
+    for bad, exc in (("sharded", NotImplementedError), ("tpu", ValueError)):
         with pytest.raises(exc):
             entreepy_tpu_torch.compress(macbeth, backend=bad)
     src = tmp_path / "m.txt"
     src.write_bytes(macbeth)
-    out = entreepy_tpu_torch.compress_file(src, device="cpu")
+    out = entreepy_tpu_torch.compress_file(src, backend="device", device="cpu")
     assert out == str(src) + ".et"
-    back = entreepy_tpu_torch.decompress_file(out, device="cpu")
+    back = entreepy_tpu_torch.decompress_file(out, backend="device", device="cpu")
     assert Path(back).read_bytes() == macbeth
 
 
@@ -188,9 +192,9 @@ def test_record_stages_times_every_stage(midsummer):
     output unchanged; outside the block nothing is recorded."""
     et = compress_host(midsummer)
     with trace.record_stages() as enc:
-        assert entreepy_tpu_torch.compress(midsummer, device="cpu") == et
+        assert entreepy_tpu_torch.compress(midsummer, backend="device", device="cpu") == et
     with trace.record_stages() as dec:
-        assert entreepy_tpu_torch.decompress(et, device="cpu") == midsummer
+        assert entreepy_tpu_torch.decompress(et, backend="device", device="cpu") == midsummer
     assert list(enc) == ["input_upload", "device_histogram", "code_table", "device_pack",
                          "sizing_fetch", "device_compact", "device_fetch", "host_assemble",
                          "stitch", "serialize"]
@@ -198,7 +202,7 @@ def test_record_stages_times_every_stage(midsummer):
                          "device_expand", "device_sym_fetch", "host_validate",
                          "host_extract", "host_check_bits"]
     assert all(ms >= 0 for ms in [*enc.values(), *dec.values()])
-    entreepy_tpu_torch.decompress(et, device="cpu")
+    entreepy_tpu_torch.decompress(et, backend="device", device="cpu")
     assert len(dec) == 8
 
 
@@ -206,10 +210,146 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, entreepy_tpu_torch as et\n"
         "import entreepy_tpu_torch.ops.decode8, entreepy_tpu_torch.ops.encode\n"
-        "p = et.compress(b'jax-free round trip', device='cpu')\n"
-        "assert et.decompress(p, device='cpu') == b'jax-free round trip'\n"
+        "p = et.compress(b'jax-free round trip', backend='device', device='cpu')\n"
+        "assert et.decompress(p, backend='device', device='cpu') == b'jax-free round trip'\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr
+
+
+# --- auto-routing (backend=None) against the JAX package's rule ---
+
+POD, DMIN = entreepy_tpu_torch.api.POD_DEVICE_MIN, entreepy_tpu_torch.api.DEVICE_MIN_BYTES
+
+
+@pytest.fixture
+def apis(monkeypatch):
+    """Both packages' api modules under the same patches, with a CUDA device
+    present for the port (the JAX package always has a device; its
+    multi-device test mesh says "sharded" where the port says "device")."""
+    from entreepy_tpu import api as japi
+    from entreepy_tpu_torch import api as tapi
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.delenv("ENTREEPY_DEVICE_MIN", raising=False)
+    return japi, tapi
+
+
+def _boom():
+    raise AssertionError("calibration probe ran for a small input")
+
+
+@pytest.mark.parametrize("env,runtime_ok,fast,n,want", [
+    ("1024", True, None, 1 << 20, "device"),
+    ("1024", True, None, 10, "host"),
+    (None, True, None, POD - 1, "host"),
+    (None, True, True, POD, "device"),
+    (None, True, False, POD, "host"),
+    (None, False, None, DMIN, "device"),
+    (None, False, None, 10, "host"),
+])
+def test_pick_backend_matches_jax(env, runtime_ok, fast, n, want, apis, monkeypatch):
+    from entreepy_tpu import runtime
+
+    japi, tapi = apis
+    assert (tapi.POD_DEVICE_MIN, tapi.DEVICE_MIN_BYTES, tapi.H2D_MIN_BYTES_PER_S) == (
+        japi.POD_DEVICE_MIN, japi.DEVICE_MIN_BYTES, japi.H2D_MIN_BYTES_PER_S)
+    if env is not None:
+        monkeypatch.setenv("ENTREEPY_DEVICE_MIN", env)
+    monkeypatch.setattr(runtime, "available", lambda: runtime_ok)
+    for mod in (japi, tapi):
+        monkeypatch.setattr(mod, "_h2d_fast", _boom if fast is None else (lambda: fast))
+    jax_pick = japi._pick_backend(None, n)
+    assert {"sharded": "device"}.get(jax_pick, jax_pick) == tapi._pick_backend(None, n) == want
+
+
+def test_device_min_env_warns(apis, monkeypatch):
+    japi, tapi = apis
+    monkeypatch.setenv("ENTREEPY_DEVICE_MIN", "not-a-number")
+    for mod in (japi, tapi):
+        with pytest.warns(UserWarning, match="ENTREEPY_DEVICE_MIN"):
+            assert mod._pick_backend(None, 10) == "host"
+
+
+def test_h2d_calibration_deadline(monkeypatch):
+    """A hung probe leaves auto on the host within the deadline; the answer
+    is cached per process."""
+    import time
+
+    from entreepy_tpu_torch import api as tapi
+
+    monkeypatch.setattr(tapi, "_h2d_fast_cache", [])
+    monkeypatch.setattr(tapi, "_h2d_probe", lambda: (time.sleep(5), True)[1])
+    t0 = time.perf_counter()
+    assert tapi._h2d_fast(deadline_s=0.2) is False
+    assert time.perf_counter() - t0 < 2
+    assert tapi._h2d_fast(deadline_s=0.2) is False  # cached: no second probe
+    monkeypatch.setattr(tapi, "_h2d_fast_cache", [])
+    monkeypatch.setattr(tapi, "_h2d_probe", lambda: True)
+    assert tapi._h2d_fast() is True
+
+
+def test_auto_without_cuda_routes_host(monkeypatch):
+    """No CUDA device: the probe says slow and auto never picks the device
+    backend, at any size; an explicit backend="device" still raises."""
+    from entreepy_tpu_torch import api as tapi
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("ENTREEPY_DEVICE_MIN", raising=False)
+    assert tapi._h2d_probe() is False
+    for n in (10, DMIN, POD, 1 << 40):
+        assert tapi._pick_backend(None, n) == "host"
+    monkeypatch.setenv("ENTREEPY_DEVICE_MIN", "0")
+    assert tapi._pick_backend(None, 1 << 40) == "host"
+    with pytest.raises(tapi.NoCudaDeviceError):
+        tapi.compress(b"abracadabra", backend="device")
+
+
+@pytest.fixture
+def wrapper_calls(monkeypatch):
+    """Names of the kernel wrappers called (on the CPU a wrapper runs its
+    plain version and counts no launch, so the calls are spied)."""
+    from entreepy_tpu_torch.ops import bitpack, cuda_fsm8
+
+    calls = []
+
+    def spy(mod, name):
+        real = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            calls.append(name)
+            return real(*a, **k)
+
+        monkeypatch.setattr(mod, name, wrapped)
+
+    for mod, names in ((encode, ["pack_blocks"]), (bitpack, ["compact_rows"]),
+                       (decode8, ["sync_pass", "fused_pass", "emit_pass", "compact_rows"]),
+                       (cuda_fsm8, ["expand_pass", "expand_pass_split"])):
+        for name in names:
+            spy(mod, name)
+    return calls
+
+
+def test_auto_small_call_launches_no_kernel(wrapper_calls, macbeth):
+    """The default moved to auto: a small call with neither backend= nor
+    device= runs the host codec; one that names the device backend, or
+    only its device, runs the kernels; a device with backend="host" is an
+    error, not dropped."""
+    et = compress_host(macbeth)
+    assert entreepy_tpu_torch.compress(macbeth) == et
+    assert entreepy_tpu_torch.decompress(et) == macbeth
+    assert wrapper_calls == []
+    for kw in ({"backend": "device", "device": "cpu"}, {"device": "cpu"}):
+        assert entreepy_tpu_torch.compress(macbeth, **kw) == et
+        assert "pack_blocks" in wrapper_calls and "compact_rows" in wrapper_calls
+        wrapper_calls.clear()
+        assert entreepy_tpu_torch.decompress(et, **kw) == macbeth
+        assert "sync_pass" in wrapper_calls and "fused_pass" in wrapper_calls
+        wrapper_calls.clear()
+    for call in (lambda: entreepy_tpu_torch.compress(macbeth, backend="host", device="cpu"),
+                 lambda: entreepy_tpu_torch.decompress(et, backend="host", device="cpu")):
+        with pytest.raises(ValueError, match="backend='host'"):
+            call()
+    assert wrapper_calls == []

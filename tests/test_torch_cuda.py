@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 import entreepy_tpu_torch as et  # noqa: E402
 from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, decode8  # noqa: E402
 from entreepy_tpu_torch.tables import (  # noqa: E402
+    body_for,
     code_tensors_for,
     decode_tables_for,
     expand_tables_for,
@@ -174,7 +175,7 @@ def test_decode_routes(kind, expand, dev):
                "host": cuda_fsm8.emit_pass, "onepass": cuda_fsm8.fused_pass}
     before = kernels[expand].launches
     calls = decode8.decode_host.calls
-    assert et.decompress(blob, expand=expand) == data
+    assert et.decompress(blob, backend="device", expand=expand) == data
     assert kernels[expand].launches > before
     assert decode8.decode_host.calls == calls
 
@@ -239,3 +240,37 @@ def test_wrappers_reject_bad_operands(dev):
         cuda_fsm8.expand_pass_split(xs, xs, split, 3, 1)
     with pytest.raises(ValueError):  # a full table is (m + 1) * S wide
         cuda_fsm8.expand_pass(xs, xs, split, 3)
+
+
+@pytest.mark.parametrize("tile_lanes", [1, 7, 64])
+@pytest.mark.parametrize("kind", ["text", "skewed"])
+def test_tiled_decode(kind, tile_lanes, dev):
+    """The streaming decode on the card equals the default route's single
+    tile, packed rows (text) and unpacked rows through the compaction
+    kernel (skewed), each tile's fetch overlapping the next tile's decode:
+    one sync pass per tile."""
+    data = _corpus(kind, 20000)
+    blob = et.compress(data, backend="host")
+    table, n, buf = body_for(blob)
+    assert (decode_tables_for(blob, dev)[0].m <= 3) is (kind == "text")
+    calls = decode8.decode_host.calls
+    before = cuda_fsm8.sync_pass.launches
+    one_tile = decode8.decode_body_device_full(buf, table, n, device=dev, chunk_bytes=64)
+    assert cuda_fsm8.sync_pass.launches - before == 1
+    before = cuda_fsm8.sync_pass.launches
+    tiled = decode8.decode_body_device_tiled(buf, table, n, device=dev, chunk_bytes=64,
+                                             tile_lanes=tile_lanes)
+    lanes = -(-buf.size // 64)
+    assert cuda_fsm8.sync_pass.launches - before == -(-lanes // tile_lanes)
+    assert np.array_equal(tiled, one_tile) and bytes(tiled) == data
+    assert decode8.decode_host.calls == calls
+
+
+def test_tiled_encode(dev):
+    from entreepy_tpu_torch.ops import encode
+
+    data = _corpus("text", 50000)
+    before = cuda_pack.pack_blocks.launches
+    out = encode.compress_device(data, device=dev, block_bytes=256, tile_blocks=4)
+    assert out == et.compress(data, backend="host")
+    assert cuda_pack.pack_blocks.launches - before == -(-len(data) // 1024)

@@ -1,0 +1,183 @@
+"""The port's streaming tiles on ``device="cpu"`` (the kernels' plain
+versions) against the JAX package: the tiled one-pass decode against JAX's
+``decode_body_device_tiled`` (its XLA scan twins on the CPU) and the port's
+default one-pass route (one tile), the router between the routes, and the
+tiled encode against the host codec. Exact byte equality, and the same error on bad streams."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from entreepy_tpu.format import compress_host, parse_header  # noqa: E402
+from entreepy_tpu.ops import decode8 as jd  # noqa: E402
+
+from entreepy_tpu_torch.ops import decode8 as td  # noqa: E402
+from entreepy_tpu_torch.ops import encode as te  # noqa: E402
+
+CHUNK = 64
+
+
+def _data(name: str, request) -> bytes:
+    """~30 KB of text (m = 3: packed rows) or of the Zipf-1.3 skewed family
+    of benchmarks/scale.py (m = 4: unpacked rows, the compaction kernel)."""
+    if name == "text":
+        return request.getfixturevalue("midsummer")[:30000]
+    p = 1.0 / np.arange(1, 257) ** 1.3
+    rng = np.random.default_rng(1234)
+    return rng.choice(256, 30000, p=p / p.sum()).astype(np.uint8).tobytes()
+
+
+def _parts(data: bytes):
+    et = compress_host(data)
+    hdr = parse_header(et)
+    return et, hdr, et[hdr.body_start:]
+
+
+def _outcome(fn):
+    try:
+        return bytes(fn())
+    except ValueError as e:
+        return (type(e).__name__, str(e))
+
+
+@pytest.mark.parametrize("tile_lanes", [8, 64, 100000])
+@pytest.mark.parametrize("name", ["text", "skewed"])
+def test_tiled_decode_matches_jax(name, tile_lanes, request):
+    data = _data(name, request)
+    _, hdr, body = _parts(data)
+    args = (body, hdr.table, hdr.body_len)
+    one_tile = td.decode_body_device_full(*args, device="cpu", chunk_bytes=CHUNK)
+    got = td.decode_body_device_tiled(*args, device="cpu", chunk_bytes=CHUNK,
+                                      tile_lanes=tile_lanes)
+    want = jd.decode_body_device_tiled(*args, chunk_bytes=CHUNK, tile_lanes=tile_lanes)
+    assert np.array_equal(got, np.asarray(want))
+    assert np.array_equal(got, one_tile)
+    assert bytes(got) == data
+
+
+@pytest.mark.parametrize("name", ["text", "skewed"])
+def test_tiled_decode_row_modes(name, request):
+    """Text takes the packed rows (m <= 3), the skewed body the unpacked
+    rows and the compaction (m > 3)."""
+    from entreepy_tpu.format.fsm8 import build_byte_fsm
+
+    _, hdr, body = _parts(_data(name, request))
+    m = td.decode_tables(build_byte_fsm(hdr.table), "cpu").m
+    assert (m <= 3) is (name == "text")
+
+
+@pytest.mark.parametrize("cut", [0.25, 0.5, 0.9])
+@pytest.mark.parametrize("name", ["text", "skewed"])
+def test_tiled_truncated_same_error(name, cut, request):
+    _, hdr, body = _parts(_data(name, request))
+    short = body[: int(len(body) * cut)]
+    got = _outcome(lambda: td.decode_body_device_tiled(
+        short, hdr.table, hdr.body_len, device="cpu", chunk_bytes=CHUNK, tile_lanes=64))
+    want = _outcome(lambda: jd.decode_body_device_tiled(
+        short, hdr.table, hdr.body_len, chunk_bytes=CHUNK, tile_lanes=64))
+    assert isinstance(got, tuple) and "ended early" in got[1]
+    assert got == want
+
+
+@pytest.mark.parametrize("name,seed", [("text", 5), ("skewed", 11)])
+def test_tiled_corrupt_same_outcome(name, seed, request):
+    """Flipped body bytes: the same bytes or the same error as JAX's tiled
+    decode; at least one flip is caught."""
+    _, hdr, body = _parts(_data(name, request))
+    rng = np.random.default_rng(seed)
+    rejected = 0
+    for _ in range(6):
+        pos = int(rng.integers(5, len(body) - 16))
+        bad = body[:pos] + bytes([body[pos] ^ 0xFF]) + body[pos + 1:]
+        got = _outcome(lambda: td.decode_body_device_tiled(
+            bad, hdr.table, hdr.body_len, device="cpu", chunk_bytes=CHUNK, tile_lanes=64))
+        assert got == _outcome(lambda: jd.decode_body_device_tiled(
+            bad, hdr.table, hdr.body_len, chunk_bytes=CHUNK, tile_lanes=64))
+        rejected += isinstance(got, tuple)
+    assert rejected >= 1
+
+
+def test_mid_train_tile_unconverged_uses_host_decoder(monkeypatch, midsummer):
+    """Only the second tile reports an unconverged self-sync: the whole body
+    goes to the exact serial decoder, once."""
+    data = midsummer[:20000]
+    _, hdr, body = _parts(data)
+    real = td.fsm8_decode_fused
+    calls = []
+
+    def fail_second_tile(*a, **k):
+        vals, exits, _ = real(*a, **k)
+        calls.append(k["entry0"])
+        return vals, exits, len(calls) == 2
+
+    monkeypatch.setattr(td, "fsm8_decode_fused", fail_second_tile)
+    before = td.decode_host.calls
+    out = td.decode_body_device_tiled(body, hdr.table, hdr.body_len, device="cpu",
+                                      chunk_bytes=CHUNK, tile_lanes=64)
+    assert len(calls) == 2  # the train stopped at the failing tile
+    assert calls[0] == 0 and torch.is_tensor(calls[1]) and calls[1].shape == (1,)
+    assert bytes(out) == data
+    assert td.decode_host.calls == before + 1
+
+
+@pytest.mark.parametrize("expand,tile_lanes,tiled", [
+    ("onepass", 16, True), ("onepass", 1 << 20, True),
+    ("split", 16, False), ("fused", 16, False), ("host", 16, False),
+])
+def test_router(monkeypatch, expand, tile_lanes, tiled, midsummer):
+    """The one-pass route always streams in tiles (one tile up to
+    TILE_LANES lanes); the two-pass routes stay untiled."""
+    data = midsummer[:20000]
+    et, _, _ = _parts(data)
+    monkeypatch.setattr(td, "TILE_LANES", tile_lanes)
+    real, calls = td.decode_body_device_tiled, []
+
+    def spy(*a, **k):
+        calls.append(k.get("tile_lanes"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(td, "decode_body_device_tiled", spy)
+    assert td.decompress_device(et, device="cpu", chunk_bytes=CHUNK, expand=expand) == data
+    assert calls == ([None] if tiled else [])
+
+
+def test_untiled_two_pass_keeps_its_bound(monkeypatch, midsummer):
+    """Above the int32 position bound a two-pass route raises; the one-pass
+    route streams instead."""
+    et, hdr, body = _parts(midsummer[:5000])
+    monkeypatch.setattr(td, "MAX_UNTILED_BYTES", 1024)
+    monkeypatch.setattr(td, "TILE_LANES", 8)
+    with pytest.raises(NotImplementedError, match="no tiled route"):
+        td.decode_body_device_full(body, hdr.table, hdr.body_len, device="cpu",
+                                   chunk_bytes=CHUNK, expand="split")
+    assert td.decompress_device(et, device="cpu", chunk_bytes=CHUNK) == midsummer[:5000]
+
+
+@pytest.mark.parametrize("tile_blocks", [1, 4, 1000])
+def test_tiled_encode_matches_host(monkeypatch, tile_blocks, midsummer):
+    data = midsummer[:50000]
+    real, tiles = te.encode_blocks_device, []
+
+    def spy(t, *a, **k):
+        tiles.append(t.numel())
+        return real(t, *a, **k)
+
+    monkeypatch.setattr(te, "encode_blocks_device", spy)
+    out = te.compress_device(data, device="cpu", block_bytes=256, tile_blocks=tile_blocks)
+    assert out == compress_host(data)
+    assert len(tiles) == -(-len(data) // (tile_blocks * 256)) and sum(tiles) == len(data)
+
+
+def test_tiled_histogram_exact(midsummer):
+    arr = np.frombuffer(midsummer[:50000], np.uint8)
+    got = te.histogram_tiles(te._uploads(arr, 4 * 256, "cpu"))
+    assert np.array_equal(got, np.bincount(arr, minlength=256))
+
+
+def test_encode_default_tile_width():
+    """32 MB of input per tile at the default block size, as the JAX package."""
+    from entreepy_tpu.ops import encode as je
+
+    assert te.TILE_BLOCKS * te.DEFAULT_BLOCK_BYTES == 32 << 20 == je.TILE_BLOCKS * 1024
+    assert td.TILE_LANES == jd.TILE_LANES == 65536

@@ -229,7 +229,8 @@ def test_truncated_body_same_error(cut, mode, midsummer, jax_route):
     et = compress_host(midsummer)
     bad = et[: parse_header(et).body_start + cut]
     jax_route(mode)
-    got = _outcome(lambda b: entreepy_tpu_torch.decompress(b, device="cpu", expand=mode), bad)
+    got = _outcome(lambda b: entreepy_tpu_torch.decompress(b, backend="device", device="cpu",
+                                                           expand=mode), bad)
     want = _outcome(lambda b: entreepy_tpu.decompress(b, backend="device"), bad)
     assert isinstance(got, tuple) and "ended early" in got[1]
     assert got == want
@@ -249,7 +250,8 @@ def test_corrupt_body_same_outcome(name, seed, mode, request, jax_route):
         pos = int(rng.integers(start + 5, len(et) - 16))
         bad = bytes(et[:pos]) + bytes([et[pos] ^ 0xFF]) + bytes(et[pos + 1:])
         got = _outcome(
-            lambda b: entreepy_tpu_torch.decompress(b, device="cpu", expand=mode), bad)
+            lambda b: entreepy_tpu_torch.decompress(b, backend="device", device="cpu",
+                                                    expand=mode), bad)
         assert got == _outcome(lambda b: entreepy_tpu.decompress(b, backend="device"), bad)
         rejected += isinstance(got, tuple)
     assert rejected >= 1
@@ -278,7 +280,8 @@ DEVICE_STAGES = ["decode_tables", "body_upload", "device_fsm8_decode", "device_e
 def test_record_stages_per_route(mode, stages, midsummer):
     et = compress_host(midsummer)
     with trace.record_stages() as got:
-        assert entreepy_tpu_torch.decompress(et, device="cpu", expand=mode) == midsummer
+        assert entreepy_tpu_torch.decompress(et, backend="device", device="cpu",
+                                             expand=mode) == midsummer
     assert list(got) == stages
     assert all(ms >= 0 for ms in got.values())
 
@@ -289,7 +292,7 @@ def test_route_leaves_jax_out(mode):
         "import sys, entreepy_tpu_torch as et\n"
         "data = b'jax-free two-pass round trip ' * 50\n"
         "p = et.compress(data, backend='host')\n"
-        f"assert et.decompress(p, device='cpu', expand={mode!r}) == data\n"
+        f"assert et.decompress(p, backend='device', device='cpu', expand={mode!r}) == data\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -299,11 +302,13 @@ def test_route_leaves_jax_out(mode):
 
 def test_unknown_route_raises(macbeth):
     et = compress_host(macbeth)
-    for call in (lambda: entreepy_tpu_torch.decompress(et, device="cpu", expand="bogus"),
+    for call in (lambda: entreepy_tpu_torch.decompress(et, backend="device", device="cpu",
+                                                       expand="bogus"),
                  lambda: entreepy_tpu_torch.decompress(et, backend="host", expand="bogus"),
                  lambda: td.decompress_device(et, device="cpu", expand="bogus"),
                  lambda: td.decode_body_device_full(b"\x00", None, 1, device="cpu",
                                                     expand="host")):
         with pytest.raises(ValueError, match="expand route"):
             call()
-    assert entreepy_tpu_torch.decompress(et, device="cpu", expand="onepass") == macbeth
+    assert entreepy_tpu_torch.decompress(et, backend="device", device="cpu",
+                                         expand="onepass") == macbeth
