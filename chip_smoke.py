@@ -16,9 +16,14 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              256-state table and the expansions' wider tables; the
              compaction also on each expansion's rows, as the two-pass
              routes give them), bit-identical on every live value;
-             a kernel's time is a run of back-to-back launches between one
-             CUDA-event pair, divided by the count; a plain version's is the
-             median CUDA-event time of single calls;
+             the sync and fused passes also at a full 65,536-lane tile of the
+             100 MB text body; a kernel's time is a run of back-to-back launches between
+             one CUDA-event pair, divided by the count; a plain version's is
+             the median CUDA-event time of single calls; each kernel's bound
+             is the bytes it must move (each input read once, each output
+             written once) over the card's 3.35 TB/s, and its library time
+             that of one PyTorch call computing the same function, where one
+             exists (the full-table expansion: one advanced-indexing call);
 4. e2e     — compress + decompress with backend="device" on 5.2 MB text,
              5 MB skewed / run-heavy / random and 100 MB text: .et bytes equal
              the host backend's, round trips exact, the 374-B golden file
@@ -46,7 +51,8 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 
 Then one JSON line of kernel results, the nvidia-smi line again, and last
 ``{"ok": true, "device": {...}}``. Imports only entreepy_tpu_torch, numpy
-and torch; never JAX.
+and torch; never JAX nor any module of the JAX package (required before the
+last line).
 """
 
 from __future__ import annotations
@@ -68,6 +74,11 @@ ROOT = Path(__file__).resolve().parent
 if not (ROOT / "entreepy_tpu_torch" / "csrc").is_dir():
     sys.exit("chip_smoke: run from the root of a checkout (entreepy_tpu_torch/csrc missing)")
 sys.path.insert(0, str(ROOT))
+
+sys.path.insert(0, str(ROOT / "tools"))
+
+import torch_kernel_ab as ab  # noqa: E402  (timing, bounds and corpora, shared)
+from torch_kernel_ab import bound_ms, kernel_ms  # noqa: E402
 
 import entreepy_tpu_torch as et  # noqa: E402
 from entreepy_tpu_torch import _build, api, cli, trace  # noqa: E402
@@ -119,41 +130,7 @@ PATH_KERNELS = {
 
 
 def corpus(kind: str, n_bytes: int) -> bytes:
-    """The corpus families of benchmarks/scale.py (same generators, seed 1234)."""
-    rng = np.random.default_rng(1234)
-    if kind == "text":
-        src = (DATA / "a_midsummer_nights_dream.txt").read_bytes()
-        return (src * (-(-n_bytes // len(src))))[:n_bytes]
-    if kind == "random":
-        return rng.integers(0, 256, n_bytes, dtype=np.uint8).tobytes()
-    if kind == "skewed":
-        p = 1.0 / np.arange(1, 257) ** 1.3
-        p /= p.sum()
-        return rng.choice(256, size=n_bytes, p=p).astype(np.uint8).tobytes()
-    if kind == "runheavy":
-        unit = b"a" * 4096 + rng.integers(0, 256, 256, dtype=np.uint8).tobytes()
-        return (unit * (-(-n_bytes // len(unit))))[:n_bytes]
-    raise ValueError(kind)
-
-
-def kernel_ms(fn, launches: int = 50, runs: int = 3) -> float:
-    """Device time of one launch of ``fn()`` in ms: ``launches`` back-to-back
-    launches between one CUDA-event pair, divided by the count; median of
-    ``runs`` such runs after one warm-up call. A device-side sleep queued
-    first keeps the queue full while the host enqueues them, so the host's
-    per-launch cost (checks, ctypes) does not open gaps between kernels."""
-    fn()
-    times = []
-    for _ in range(runs):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)  # ~10 ms of device cycles
-        a.record()
-        for _ in range(launches):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / launches)
-    return statistics.median(times)
+    return ab.corpus(ROOT, kind, n_bytes)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -188,10 +165,7 @@ def require(ok: bool, msg: str) -> None:
 
 def max_err(a: torch.Tensor, b: torch.Tensor, live: torch.Tensor | None = None) -> int:
     """Largest |a - b| over the live elements; raises if any differs."""
-    d = (a.long() - b.long()).abs()
-    if live is not None:
-        d = torch.where(live, d, 0)
-    err = int(d.max()) if d.numel() else 0
+    err = ab.max_err(a, b, live)
     require(err == 0, f"kernel and plain version differ (max |err| {err})")
     return err
 
@@ -213,10 +187,23 @@ def body_cols(data: bytes):
     return xs, tables, buf.size, lanes
 
 
+def sync_check(xs, next_state):
+    """Sync kernel vs plain over the suffix window the main path's first
+    guess walks, from the root: exits exact. Returns (err, ms, plain_ms,
+    bound_ms, library_ms)."""
+    w = min(decode8.SYNC_WINDOW, xs.shape[0])
+    sx, zeros = xs[-w:], torch.zeros(xs.shape[1], dtype=torch.int32, device=DEV)
+    exits = cuda_fsm8.sync_pass(sx, next_state, zeros)
+    return (max_err(exits, cuda_fsm8.sync_pass_plain(sx, next_state, zeros)),
+            kernel_ms(lambda: cuda_fsm8.sync_pass(sx, next_state, zeros)),
+            cuda_ms(lambda: cuda_fsm8.sync_pass_plain(sx, next_state, zeros), 3),
+            bound_ms(sx, next_state, zeros, exits), None)
+
+
 def emit_check(xs, next_state):
     """Emit kernel vs plain from the entries of the main path's first pass
     (the suffix sync's guess): states and exits exact. Returns (err, ms,
-    plain_ms)."""
+    plain_ms, bound_ms, library_ms)."""
     k, lanes = xs.shape
     w = min(decode8.SYNC_WINDOW, k)
     zeros = torch.zeros(lanes, dtype=torch.int32, device=DEV)
@@ -227,17 +214,18 @@ def emit_check(xs, next_state):
     err = max(max_err(sk, sp), max_err(xk, xp))
     ms = kernel_ms(lambda: cuda_fsm8.emit_pass(xs, next_state, entries))
     plain_ms = cuda_ms(lambda: cuda_fsm8.emit_pass_plain(xs, next_state, entries), 3)
-    return err, ms, plain_ms
+    return err, ms, plain_ms, bound_ms(xs, next_state, entries, sk, xk), None
 
 
 def compact_check(rows, live, sub: int, cap: int):
     """Compaction kernel vs plain: plane and counts exact. Returns (err, ms,
-    plain_ms)."""
+    plain_ms, bound_ms, library_ms)."""
     ck = cuda_compact.compact_rows(rows, live, sub, cap)
     cp = cuda_compact.compact_rows_plain(rows, live, sub, cap)
     return (max(max_err(ck[0], cp[0]), max_err(ck[1], cp[1])),
             kernel_ms(lambda: cuda_compact.compact_rows(rows, live, sub, cap)),
-            cuda_ms(lambda: cuda_compact.compact_rows_plain(rows, live, sub, cap), 3))
+            cuda_ms(lambda: cuda_compact.compact_rows_plain(rows, live, sub, cap), 3),
+            bound_ms(rows, live, *ck), None)
 
 
 def expand_check(blob: bytes, split: bool):
@@ -261,7 +249,17 @@ def expand_check(blob: bytes, split: bool):
     j = torch.arange(m, device=DEV)[None, :, None]
     err = max(max_err(vk[:, 0], vp[:, 0]),
               max_err(vk[:, 1:], vp[:, 1:], j < (vp[:, 0] & 15)[:, None, :]))
-    expand = (err, kernel_ms(lambda: fn(*args)), cuda_ms(lambda: plain(*args), 3))
+    library = None
+    if not split:  # one advanced-indexing call gives the full table's [K, m+1, lanes] rows
+        cols_of = (torch.arange(m + 1, device=DEV) * tables.s)[None, :, None]
+
+        def index_call():
+            return tables.table[xs.long()[:, None, :], states.long()[:, None, :] + cols_of]
+
+        max_err(index_call(), vk)
+        library = kernel_ms(index_call)
+    expand = (err, kernel_ms(lambda: fn(*args)), cuda_ms(lambda: plain(*args), 3),
+              bound_ms(xs, states, tables.table, vk), library)
 
     k = xs.shape[0]
     counts, _inv, syms = decode8._expand_mask(vk[:, 0], vk[:, 1:].to(torch.uint8), buf.size)
@@ -273,7 +271,8 @@ def expand_check(blob: bytes, split: bool):
 
 def fused_check(xs, tables, n_valid, lanes, packed: bool):
     """Fused kernel vs plain at converged entry states: row0/count bytes and
-    exits exact, symbol slots compared where live (j < count)."""
+    exits exact, symbol slots compared where live (j < count). Returns (err,
+    ms, plain_ms, bound_ms, library_ms)."""
     m, mt, s = tables.m, tables.mt, tables.s
     _, exits, unconverged = decode8.fsm8_decode_fused(
         xs.t().contiguous(), tables.next_state, tables.fused, lanes, m, mt, s,
@@ -297,7 +296,18 @@ def fused_check(xs, tables, n_valid, lanes, packed: bool):
               max_err(slots_k, slots_p, j < (row0p & 15)[:, None, :]))
     ms = kernel_ms(lambda: cuda_fsm8.fused_pass(*args))
     plain_ms = cuda_ms(lambda: cuda_fsm8.fused_pass_plain(*args), 3)
-    return err, ms, plain_ms
+    return err, ms, plain_ms, bound_ms(xs, tables.fused, entries, vk, xk), None
+
+
+def launch_counts() -> dict:
+    return {fn: fn.launches for fn in KERNELS}
+
+
+def print_launches(label: str, before: dict) -> None:
+    """The launches of each kernel since ``before`` (one call's count)."""
+    print(f"[e2e] {label} launches: {{"
+          + ", ".join(f"{KERNELS[f][0]}: {f.launches - n}" for f, n in before.items()
+                      if f.launches > n) + "}")
 
 
 def run_path(path: str, drive) -> dict:
@@ -308,7 +318,7 @@ def run_path(path: str, drive) -> dict:
         fn.launches = 0
     decode8.decode_host.calls = 0
     drive()
-    counts = {fn: fn.launches for fn in KERNELS}
+    counts = launch_counts()
     print(f"[e2e] {path} path launches: "
           f"{{{', '.join(f'{KERNELS[f][0]}: {n}' for f, n in counts.items())}}}"
           f" | self-sync host fallbacks: {decode8.decode_host.calls}")
@@ -402,22 +412,22 @@ def main(argv: list[str]) -> int:
     print(f"[kernels] text body {n_valid} B: {lanes} lanes x {xs.shape[0]} B, "
           f"m={tables.m} s={tables.s} fused table {tuple(tables.fused.shape)} | {card}")
     results = {}
-    w = min(decode8.SYNC_WINDOW, xs.shape[0])
-    sx, zeros = xs[-w:], torch.zeros(lanes, dtype=torch.int32, device=DEV)
-    results[cuda_fsm8.sync_pass] = (
-        max_err(cuda_fsm8.sync_pass(sx, tables.next_state, zeros),
-                cuda_fsm8.sync_pass_plain(sx, tables.next_state, zeros)),
-        kernel_ms(lambda: cuda_fsm8.sync_pass(sx, tables.next_state, zeros)),
-        cuda_ms(lambda: cuda_fsm8.sync_pass_plain(sx, tables.next_state, zeros), 3),
-    )
-    results[cuda_fsm8.fused_pass] = fused_check(xs, tables, n_valid, lanes, True)
-    results[cuda_fsm8.emit_pass] = emit_check(xs, tables.next_state)
+
+    def show(label: str, res) -> None:
+        err, ms, plain_ms, bound, library = res
+        print(f"[kernels] {label}: max_abs_err {err}, kernel {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({bound / ms:.1%} of it), plain {plain_ms:.3f} ms"
+              + (f", library {library:.4f} ms" if library is not None else "") + f" | {card}")
 
     def merge(fn, res) -> None:
         """A kernel checked at further shapes: its worst error counts; the
         JSON line keeps the first shapes' times."""
         first = results.setdefault(fn, res)
         results[fn] = (max(first[0], res[0]), *first[1:])
+
+    results[cuda_fsm8.sync_pass] = sync_check(xs, tables.next_state)
+    results[cuda_fsm8.fused_pass] = fused_check(xs, tables, n_valid, lanes, True)
+    results[cuda_fsm8.emit_pass] = emit_check(xs, tables.next_state)
 
     n_blocks = -(-len(text) // DEFAULT_BLOCK_BYTES)
     blocks = torch.zeros(n_blocks * DEFAULT_BLOCK_BYTES, dtype=torch.uint8, device=DEV)
@@ -434,6 +444,7 @@ def main(argv: list[str]) -> int:
             max_err(pk[3], pp[3])),
         kernel_ms(lambda: cuda_pack.pack_blocks(blocks, valid, codes, lengths)),
         cuda_ms(lambda: cuda_pack.pack_blocks_plain(blocks, valid, codes, lengths), 3),
+        bound_ms(blocks, valid, codes, lengths, *pk), None,
     )
 
     # the compaction at the encode plane's shapes first (the JSON line's times)
@@ -453,34 +464,44 @@ def main(argv: list[str]) -> int:
     rh_tables, rh_buf = expand_tables_for(blobs["runheavy"], DEV, True)
     res = emit_check(body_xs(rh_buf)[0], rh_tables.next_state)
     merge(cuda_fsm8.emit_pass, res)
-    print(f"[kernels] emit_pass, runheavy body: S={rh_tables.s} next_state "
-          f"{tuple(rh_tables.next_state.shape)}: max_abs_err {res[0]}, kernel {res[1]:.4f} ms, "
-          f"plain {res[2]:.3f} ms | {card}")
+    show(f"emit_pass, runheavy body: S={rh_tables.s} next_state "
+         f"{tuple(rh_tables.next_state.shape)}", res)
     for fn, split, kinds in ((cuda_fsm8.expand_pass_split, True, ("text", "runheavy")),
                              (cuda_fsm8.expand_pass, False, ("text", "skewed", "runheavy"))):
         for kind in kinds:
             res, cres, t, (sub, cap) = expand_check(blobs[kind], split)
             merge(fn, res)
             merge(cuda_compact.compact_rows, cres)
-            print(f"[kernels] {KERNELS[fn][0]}, {kind} body: m={t.m} S={t.s} table "
-                  f"{tuple(t.table.shape)} ({t.table.numel()} B): max_abs_err {res[0]}, "
-                  f"kernel {res[1]:.4f} ms, plain {res[2]:.3f} ms | {card}")
-            print(f"[kernels] compact_rows on its rows: sub={sub} cap={cap}: max_abs_err "
-                  f"{cres[0]}, kernel {cres[1]:.4f} ms, plain {cres[2]:.3f} ms | {card}")
+            show(f"{KERNELS[fn][0]}, {kind} body: m={t.m} S={t.s} table "
+                 f"{tuple(t.table.shape)} ({t.table.numel()} B)", res)
+            show(f"compact_rows on its rows: sub={sub} cap={cap}", cres)
 
     sk_xs, sk_tables, sk_valid, sk_lanes = body_cols(corpus("skewed", 5 * MB))
-    err, ms, plain_ms = fused_check(sk_xs, sk_tables, sk_valid, sk_lanes, False)
-    print(f"[kernels] fused_pass unpacked, skewed body {sk_valid} B: {sk_lanes} lanes, "
-          f"m={sk_tables.m} table {tuple(sk_tables.fused.shape)} "
-          f"({sk_tables.fused.numel()} B shared): max_abs_err {err}, "
-          f"{ms:.4f} ms vs plain {plain_ms:.2f} ms | {card}")
+    res = fused_check(sk_xs, sk_tables, sk_valid, sk_lanes, False)
+    merge(cuda_fsm8.fused_pass, res)
+    show(f"fused_pass unpacked, skewed body {sk_valid} B: {sk_lanes} lanes, m={sk_tables.m} "
+         f"table {tuple(sk_tables.fused.shape)} ({sk_tables.fused.numel()} B shared)", res)
+    # a full tile of the streaming decode: the 100 MB text body's first 65,536 lanes
+    big_tables, big_buf = decode_tables_for(et.compress(corpus("text", 100 * MB),
+                                                        backend="host"), DEV)
+    tile = big_buf[: decode8.TILE_LANES * decode8.DEFAULT_CHUNK_BYTES]
+    tile_xs, tile_lanes = body_xs(tile)
+    res = sync_check(tile_xs, big_tables.next_state)
+    merge(cuda_fsm8.sync_pass, res)
+    show(f"sync_pass, a {tile_lanes}-lane tile of the 100 MB text body", res)
+    res = fused_check(tile_xs, big_tables, tile.size, tile_lanes, True)
+    merge(cuda_fsm8.fused_pass, res)
+    show(f"fused_pass packed, a {tile_lanes}-lane tile of the 100 MB text body", res)
+    del tile_xs
 
     results = {fn: results[fn] for fn in KERNELS}  # the JSON line's order
-    for fn, (err, ms, plain_ms) in results.items():
-        print(f"[kernels] {KERNELS[fn][0]}: max_abs_err {err}, kernel {ms:.4f} ms "
-              f"(50 back-to-back launches per event pair), plain {plain_ms:.3f} ms "
-              f"(median of single calls) | {card}")
-
+    for fn, res in results.items():
+        show(f"{KERNELS[fn][0]} (50 back-to-back launches per event pair; plain: median "
+             "of single calls)", res)
+    print("[kernels] library: the full-table expansion is one advanced-indexing call "
+          "(table[byte, j*S + state]); no single PyTorch call computes the others: the "
+          "sync, emit and fused passes are serial per-lane walks, the pack a per-block "
+          "bit-serial scan, the compaction a per-column stable compaction")
     # 4. end to end, through the public API: each main path with its counts from 0
     golden = (DATA / "nice.shakespeare.txt").read_bytes()
     cases = [("text 5.2 MB", text)] + [
@@ -497,13 +518,14 @@ def main(argv: list[str]) -> int:
         print(f"[e2e] golden nice.shakespeare.et (374 B) matches | {card}")
         for name, data in cases:
             host_blob = et.compress(data, backend="host")
-            packs = cuda_pack.pack_blocks.launches
+            before = launch_counts()
             blob = e2e_blobs[name] = et.compress(data, backend="device")
-            enc_tiles = cuda_pack.pack_blocks.launches - packs
+            enc_tiles = cuda_pack.pack_blocks.launches - before[cuda_pack.pack_blocks]
             require(blob == host_blob, f"{name}: .et differs from the host backend's")
             syncs = cuda_fsm8.sync_pass.launches
             require(et.decompress(blob, backend="device") == data, f"{name}: round trip differs")
             dec_tiles = cuda_fsm8.sync_pass.launches - syncs
+            print_launches(f"{name} round trip (device backend)", before)
             require(et.decompress(blob, backend="host") == data,
                     f"{name}: host round trip differs")
             if len(data) > 20 * MB:
@@ -528,8 +550,10 @@ def main(argv: list[str]) -> int:
             if big and route != "host":
                 continue  # int32 rows of every byte: 100 MB runs through "host" only
             blob = e2e_blobs[name]
+            before = launch_counts()
             require(et.decompress(blob, backend="device", expand=route) == data,
                     f"{name}: expand={route} round trip differs")
+            print_launches(f"{name} decompress expand={route}", before)
             dec_ms[name][route] = wall_ms(
                 lambda: et.decompress(blob, backend="device", expand=route), 1 if big else 5)
 
@@ -634,12 +658,15 @@ def main(argv: list[str]) -> int:
     if profile:
         profile_round_trip(text, card)
     require("jax" not in sys.modules, "the port imported jax")
+    jax_package = [n for n in sys.modules if n.split(".")[0] == "entreepy_tpu"]
+    require(not jax_package, f"the port imported the JAX package: {jax_package}")
 
     print(json.dumps({"kernels": [
         {"name": KERNELS[fn][0], "route": "cuda", "source": KERNELS[fn][1],
          "replaces": KERNELS[fn][2], "launches": launches[fn], "max_abs_err": err,
-         "ms": ms, "plain_ms": plain_ms}
-        for fn, (err, ms, plain_ms) in results.items()
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+         "library_ms": library}
+        for fn, (err, ms, plain_ms, bound, library) in results.items()
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

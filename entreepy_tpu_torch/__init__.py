@@ -2,9 +2,10 @@
 
 Same ``.et`` format and public API as ``entreepy_tpu``; the single-device
 ``device`` backend runs hand-written CUDA kernels for Hopper (``csrc/``),
-built with ``nvcc`` at first use. The JAX package's framework-free layers
-(``entreepy_tpu.format``, ``.utils.stitch``, ``.runtime``) are reused as they
-are; this package never imports JAX.
+built with ``nvcc`` at first use. The host layers are the port's own copies
+of the JAX package's framework-free modules (``format``, ``runtime`` with its
+C++ host runtime, ``utils``): this package imports nothing of ``entreepy_tpu``
+and never imports JAX.
 
     >>> import entreepy_tpu_torch as et
     >>> packed = et.compress(b"an example body of text")            # on cuda

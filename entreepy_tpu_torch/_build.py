@@ -5,7 +5,7 @@ a plain C interface, loaded with ``ctypes``: one ``nvcc`` per source, all
 started together, then one link. No PyTorch header is included, so a build
 takes seconds. The library is cached in ``build/entreepy_tpu_torch/``
 at the root of the checkout, keyed by a hash of the sources and flags (the
-same scheme as the host runtime's cache in ``entreepy_tpu/runtime``). Nothing
+same scheme as the host runtime's library, ``runtime``). Nothing
 builds at import: the first kernel launch does.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;

@@ -10,8 +10,9 @@ Backends with byte-identical output:
   to the CPU. ``decompress``'s ``expand`` picks the decode route on the
   device (see ``ops.decode8``): "onepass" (default), the two-pass "split"
   and "fused", or "host" (device state passes, host expansion).
-* ``host`` — the JAX package's framework-free host codec
-  (``entreepy_tpu.format``), which never imports JAX.
+* ``host`` — the host codec (``format.compress_host`` /
+  ``decompress_host``, the port's copy of the JAX package's, with its C++
+  runtime in ``runtime``).
 * ``None`` (the default) — auto, the JAX package's rule: the native host
   runtime below ``POD_DEVICE_MIN`` bytes; at or above it the device backend
   when a one-shot host-to-device probe (cached per process, 60 s deadline)
@@ -32,9 +33,8 @@ from pathlib import Path
 
 import torch
 
-from entreepy_tpu import runtime
-from entreepy_tpu.api import inspect  # noqa: F401  (format-only, re-exported)
-from entreepy_tpu.format import compress_host, decompress_host
+from . import runtime
+from .format import compress_host, decompress_host, parse_header
 
 DEVICE_MIN_BYTES = 1 << 16
 # Auto-routing floor when the native host runtime exists: calls below it are
@@ -194,7 +194,7 @@ def decompress(et: bytes, *, backend: str | None = None, device=None,
 def compress_file(src, dst=None, **kwargs) -> str:
     """Compress file ``src`` to ``dst`` (default: ``src + '.et'``, the
     reference CLI's naming). Returns the output path."""
-    from entreepy_tpu.cli import default_output_name
+    from .cli import default_output_name  # lazy: cli imports api
 
     src = Path(src)
     dst = Path(dst) if dst is not None else Path(default_output_name("compress", str(src)))
@@ -205,9 +205,31 @@ def compress_file(src, dst=None, **kwargs) -> str:
 def decompress_file(src, dst=None, **kwargs) -> str:
     """Decompress .et file ``src`` to ``dst`` (default: ``decoded_<name>``
     minus the .et suffix, the reference CLI's naming). Returns the path."""
-    from entreepy_tpu.cli import default_output_name
+    from .cli import default_output_name  # lazy: cli imports api
 
     src = Path(src)
     dst = Path(dst) if dst is not None else Path(default_output_name("decompress", str(src)))
     dst.write_bytes(decompress(src.read_bytes(), **kwargs))
     return str(dst)
+
+
+def inspect(et: bytes) -> dict:
+    """Parsed .et header as a dict: validates magic/version and returns
+    sizes plus the symbol dictionary (symbol -> (length, code bits))."""
+    hdr = parse_header(et)
+    table = hdr.table
+    dictionary = {
+        int(s): (int(table.lengths[s]), format(int(table.codes[s]), f"0{int(table.lengths[s])}b"))
+        for s in range(256)
+        if table.lengths[s] > 0
+    }
+    return {
+        "version": hdr.version,
+        "num_symbols": table.num_symbols,
+        "original_bytes": hdr.body_len,
+        "compressed_bytes": len(et),
+        "body_offset": hdr.body_start,
+        "max_code_len": table.max_len,
+        "min_code_len": table.min_len,
+        "dictionary": dictionary,
+    }

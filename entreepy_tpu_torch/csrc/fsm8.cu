@@ -12,21 +12,23 @@
 // shared memory.
 //
 // What bounds them on the card: the serial state chain. A lane cannot start byte k+1 before
-// byte k's state is known, and each byte costs a short chain of dependent shared-memory loads
-// (sync: 1; fused: merged/p -> tail count -> tail end). A pass therefore takes about
-// K x (chain latency) once every lane has a thread; device-memory traffic is small (1 B read
-// per body byte; emit: 1 B written; fused: 4 B written packed, 4(m+1) B unpacked). The design:
-//   * stages the whole table in shared memory once per block (fused: 256 x (2s + 9(mt+2)) B,
-//     58 KB for the text corpus, at most 148 KB; sync/emit: S x 256 B, at most 64 KB), raising the
-//     block's dynamic shared-memory cap above 48 KB where needed;
-//   * reads bytes from the [K, lanes] layout, so a warp's loads at step k are one 32-byte
+// byte k's state is known. A pass therefore takes about K x (chain latency) once every lane has a
+// thread; device-memory traffic is small (1 B read per body byte; emit: 1 B written; fused: 4 B
+// written packed, 4(m+1) B unpacked). The sync and emit passes:
+//   * stage the next_state table (S x 256 B, at most 64 KB) in shared memory once per block,
+//     raising the block's dynamic shared-memory cap above 48 KB where needed;
+//   * read bytes from the [K, lanes] layout, so a warp's loads at step k are one 32-byte
 //     sector and its stores one 128-byte line;
-//   * keeps blocks at 64 threads so a body's lanes spread over as many SMs as possible.
+//   * keep blocks at 64 threads so a body's lanes spread over as many SMs as possible.
+// The fused pass's own design (bytes fetched ahead, a derived chain table) is noted at its
+// kernel below.
 //
-// Table layouts are those of entreepy_tpu/format/fsm8.py, as uint8:
+// Table layouts are those of format/fsm8.py (the JAX package's, copied), as uint8:
 //   next_state[S, 256]                       (ByteFsm.next_state)
 //   fused[256, C], C = 2s + 9(mt + 2)        (fused_decode_tensors, one row per byte)
 // The running state is always a trie node < s: every table entry that feeds it is one.
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -64,44 +66,168 @@ __global__ void emit_kernel(const uint8_t* __restrict__ xs, const uint8_t* __res
   exits[lane] = state;
 }
 
+// ---- fused_pass: the one-pass decode sweep ----
+//
+// Replaces fused_pass_pallas8 (_fused_kernel). Each step of a lane reads one byte x, emits the
+// byte's rows from the fused table and advances the state. What bounds it on this card is each
+// lane's serial state chain, so the design takes every wait it can off that chain:
+//   * no device load on the chain: a thread holds its lane's bytes in register rings (kRing) and
+//     fetches each ring two rings before the chain reaches it, so the ~600-cycle load
+//     latency is paid once per ring, not once per byte; at each step a warp's loads are still one
+//     32-byte sector;
+//   * one shared-memory load per byte on the chain: the next state is a function of (x, state)
+//     alone, p > 0 ? tail_end[x][p] : merged[x][state] with p = pv[x][state] & 15, so each block
+//     derives chain[x * s + state] from the staged fused table once, and a step is
+//     state = chain[x * s + state]. The emitted rows (merged, pv, the tail count and slots) are
+//     read off the chain: the loop is software-pipelined, so the chain walks one ring while the
+//     rows of the ring before it are read and stored (st.global, which no shared-memory load
+//     has to wait behind). The chain table comes from the fused table itself, so it is
+//     bit-exact with the reference also after an invalid transition;
+//   * shared memory: the fused table plus the chain table, at most 151,808 + 65,536 B
+//     (s = 256, m = 8), staged with cp.async so all of a block's copies are in flight at once;
+//   * blocks: the walking lanes of a block are sized from the lane count and the blocks that fit
+//     an SM at this shared-memory size, so a small body spreads over every SM in one wave and a
+//     65,536-lane tile stages the tables once per block, not once per 64 lanes. A block has at
+//     least kFusedStageThreads threads for the staging and the derivation; the rest return.
+// Device-memory traffic per byte: 1 B read; 4 B written packed, 4(m + 1) B unpacked.
+//
 // PACKED (m <= 3): one word per byte, row0 << 8m | slot_j << 8(m-1-j), with row0 zeroed at
 // lane-linear positions >= n_valid. Otherwise m + 1 rows per byte: row0, then the m slots.
+
+// Bytes of its lane a thread holds per ring: 16 packed; 8 unpacked, whose wider rows need the
+// registers (at 16 the unpacked kernel reaches 128 registers and runs slower).
 template <bool PACKED>
-__global__ void fused_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ fused,
-                             int cols, const int32_t* __restrict__ entries,
-                             int32_t* __restrict__ out, int32_t* __restrict__ exits, int k_len,
-                             int lanes, int m, int mt, int s, long long n_valid) {
+constexpr int kRing = PACKED ? 16 : 8;
+constexpr int kFusedMaxLanes = 512;      // walking threads per block
+constexpr int kFusedStageThreads = 256;  // threads per block at least
+
+// Byte offset of the chain table in shared memory: after the fused table, 16-byte aligned.
+__host__ __device__ inline int chain_offset(int cols) { return (256 * cols + 15) & ~15; }
+
+// Byte k of a lane's column for k < k_len (the loads are issued, not awaited).
+template <int R>
+__device__ __forceinline__ void load_ring(uint32_t (&ring)[R], const uint8_t* col, int k0,
+                                          int k_len, int lanes) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) ring[r] = k0 + r < k_len ? col[(size_t)(k0 + r) * lanes] : 0;
+}
+
+// The rows of byte x read in state st, off the chain. The stores are global (st.global.cg), so
+// the compiler may move the next steps' shared-memory loads above them. NT: the tail slots,
+// exactly (unpacked) or at most (packed, n_tail of them).
+template <bool PACKED, int NT>
+__device__ __forceinline__ void fused_emit(const uint8_t* tbl, int x, int st,
+                                           int32_t* __restrict__ out, int k, int lanes, int lane,
+                                           int cols, int s, int off_tc, int m, int n_tail,
+                                           long long real_bytes) {
+  const uint8_t* row = tbl + x * cols;
+  const int mg = row[st];
+  const int pv = row[s + st];
+  const int p = pv & 15;
+  const uint8_t* tail = row + off_tc + p;  // tail count | 16 * invalid, then the slots by p
+  const int tcv = tail[0];
+  const bool inv = pv >= 16 || (p > 0 && tcv >= 16);
+  int row0 = inv ? 16 : (p > 0) + (tcv & 15);
+  // the tail slots: a loop of constant trip count, so the unrolled ring stays one basic block
+  // the compiler can schedule across steps
+  if (PACKED) {
+    if (k >= real_bytes) row0 = 0;
+    uint32_t word = ((uint32_t)row0 << (8 * m)) | ((uint32_t)mg << (8 * (m - 1)));
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      if (j < n_tail) word |= (uint32_t)tail[9 * (1 + j)] << (8 * (m - 2 - j));
+    __stcg(out + (size_t)k * lanes + lane, (int32_t)word);
+  } else {
+    int32_t* o = out + (size_t)k * (m + 1) * lanes + lane;
+    __stcg(o, row0);
+    __stcg(o + lanes, mg);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) __stcg(o + (size_t)(2 + j) * lanes, (int32_t)tail[9 * (1 + j)]);
+  }
+}
+
+// One ring of steps, software-pipelined: the chain walks ring k0 + R (bytes xb) while the rows
+// of ring k0 (bytes xa, pre-transition states st) are emitted. nst gets ring k0 + R's
+// pre-transition states. GUARD masks steps at or past k_len.
+template <bool PACKED, int NT, bool GUARD, int R = kRing<PACKED>>
+__device__ __forceinline__ void fused_ring(const uint8_t* tbl, const uint8_t* chain,
+                                           const uint32_t (&xa)[R], const uint32_t (&xb)[R],
+                                           const int (&st)[R], int (&nst)[R], int& state, int k0,
+                                           int k_len,
+                                           int32_t* __restrict__ out, int lanes, int lane,
+                                           int cols, int s, int off_tc, int m, int n_tail,
+                                           long long real_bytes) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    nst[r] = state;
+    if (!GUARD || k0 + R + r < k_len) state = chain[xb[r] * s + state];
+    if (!GUARD || k0 + r < k_len)
+      fused_emit<PACKED, NT>(tbl, xa[r], st[r], out, k0 + r, lanes, lane, cols, s, off_tc, m,
+                             n_tail, real_bytes);
+  }
+}
+
+// PACKED: m <= 3, NT = 2 (n_tail of them used); unpacked: NT = n_tail = min(mt, m - 1).
+template <bool PACKED, int NT>
+__global__ void __launch_bounds__(kFusedMaxLanes)
+    fused_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ fused, int cols,
+                 const int32_t* __restrict__ entries, int32_t* __restrict__ out,
+                 int32_t* __restrict__ exits, int k_len, int lanes, int m, int mt, int s,
+                 long long n_valid, int block_lanes) {
   extern __shared__ __align__(16) uint8_t tbl[];
-  et::stage_table(tbl, fused, 256 * cols);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
+  uint8_t* chain = tbl + chain_offset(cols);
+  et::stage_table_async(tbl, fused, 256 * cols);
 
   const int off_tc = 2 * s;                  // tail count + 16 * invalid, by p
   const int off_end = 2 * s + 9 * (1 + mt);  // tail end state, by p
-  const int n_tail = min(mt, m - 1);         // tail symbol slots emitted after the first
-  const long long real_bytes = n_valid - (long long)lane * k_len;
-  int state = entries[lane];
-  for (int k = 0; k < k_len; ++k) {
-    const uint8_t* row = tbl + xs[(size_t)k * lanes + lane] * cols;
-    const int mg = row[state];
-    const int pv = row[s + state];
-    const int p = pv & 15;
-    const int tcv = row[off_tc + p];
-    const bool inv = pv >= 16 || (p > 0 && tcv >= 16);
-    int row0 = inv ? 16 : (p > 0) + (tcv & 15);
-    if (PACKED) {
-      if (k >= real_bytes) row0 = 0;
-      uint32_t word = ((uint32_t)row0 << (8 * m)) | ((uint32_t)mg << (8 * (m - 1)));
-      for (int j = 0; j < n_tail; ++j)
-        word |= (uint32_t)row[off_tc + 9 * (1 + j) + p] << (8 * (m - 2 - j));
-      out[(size_t)k * lanes + lane] = (int32_t)word;
-    } else {
-      int32_t* o = out + (size_t)k * (m + 1) * lanes + lane;
-      o[0] = row0;
-      o[lanes] = mg;
-      for (int j = 0; j < n_tail; ++j) o[(size_t)(2 + j) * lanes] = row[off_tc + 9 * (1 + j) + p];
+  // chain[x * s + st]; s is a multiple of 8, so the 4 entries a thread derives share x. The
+  // float quotient is exact here: (i + 0.5) / s is at least 0.5 / s from an integer.
+  const float inv_s = 1.0f / s;
+  for (int i = 4 * threadIdx.x; i < 256 * s; i += 4 * blockDim.x) {
+    const int x = __float2int_rz((i + 0.5f) * inv_s);
+    const int st = i - x * s;
+    const uint8_t* row = tbl + x * cols;
+    uint32_t word = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int p = row[s + st + q] & 15;
+      word |= (uint32_t)row[p > 0 ? off_end + p : st + q] << (8 * q);
     }
-    state = p > 0 ? row[off_end + p] : mg;
+    *reinterpret_cast<uint32_t*>(chain + i) = word;
+  }
+  __syncthreads();
+
+  const int lane = blockIdx.x * block_lanes + threadIdx.x;
+  if ((int)threadIdx.x >= block_lanes || lane >= lanes) return;
+  const int n_tail = min(mt, m - 1);  // tail symbol slots emitted after the first
+  const long long real_bytes = n_valid - (long long)lane * k_len;
+  const uint8_t* col = xs + lane;
+  int state = entries[lane];
+  // xa: the bytes of the ring being emitted; xb: of the ring being walked; ahead: in flight
+  constexpr int R = kRing<PACKED>;
+  uint32_t xa[R], xb[R], ahead[R];
+  int st[R], nst[R];
+  load_ring(xa, col, 0, k_len, lanes);
+  load_ring(xb, col, R, k_len, lanes);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    st[r] = state;
+    if (r < k_len) state = chain[xa[r] * s + state];
+  }
+  int k0 = 0;
+  for (; k0 + 2 * R <= k_len; k0 += R) {
+    load_ring(ahead, col, k0 + 2 * R, k_len, lanes);
+    fused_ring<PACKED, NT, false>(tbl, chain, xa, xb, st, nst, state, k0, k_len, out, lanes,
+                                  lane, cols, s, off_tc, m, n_tail, real_bytes);
+#pragma unroll
+    for (int r = 0; r < R; ++r) xa[r] = xb[r], xb[r] = ahead[r], st[r] = nst[r];
+  }
+  for (; k0 < k_len; k0 += R) {
+    load_ring(ahead, col, k0 + 2 * R, k_len, lanes);
+    fused_ring<PACKED, NT, true>(tbl, chain, xa, xb, st, nst, state, k0, k_len, out, lanes,
+                                 lane, cols, s, off_tc, m, n_tail, real_bytes);
+#pragma unroll
+    for (int r = 0; r < R; ++r) xa[r] = xb[r], xb[r] = ahead[r], st[r] = nst[r];
   }
   exits[lane] = state;
 }
@@ -141,24 +267,34 @@ int et_emit_pass(const void* xs, const void* next_state, int n_states, const voi
 int et_fused_pass(const void* xs, const void* fused, int cols, const void* entries, void* out,
                   void* exits, int k_len, int lanes, int m, int mt, int s, long long n_valid,
                   int packed, void* stream) {
-  const int smem = 256 * cols;
-  const int blocks = et::blocks_for(lanes, et::kLaneThreads);
-  cudaError_t err;
-  if (packed) {
-    err = cudaFuncSetAttribute(fused_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_kernel<true><<<blocks, et::kLaneThreads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)xs, (const uint8_t*)fused, cols, (const int32_t*)entries, (int32_t*)out,
-        (int32_t*)exits, k_len, lanes, m, mt, s, n_valid);
-  } else {
-    err = cudaFuncSetAttribute(fused_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_kernel<false><<<blocks, et::kLaneThreads, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)xs, (const uint8_t*)fused, cols, (const int32_t*)entries, (int32_t*)out,
-        (int32_t*)exits, k_len, lanes, m, mt, s, n_valid);
-  }
+  const int smem = chain_offset(cols) + 256 * s;
+  using Kernel = void (*)(const uint8_t*, const uint8_t*, int, const int32_t*, int32_t*, int32_t*,
+                          int, int, int, int, int, long long, int);
+  static const Kernel unpacked[] = {fused_kernel<false, 0>, fused_kernel<false, 1>,
+                                    fused_kernel<false, 2>, fused_kernel<false, 3>,
+                                    fused_kernel<false, 4>, fused_kernel<false, 5>,
+                                    fused_kernel<false, 6>, fused_kernel<false, 7>};
+  const int n_tail = std::min(mt, m - 1);
+  if (n_tail < 0 || n_tail > 7 || (packed && n_tail > 2)) return (int)cudaErrorInvalidValue;
+  const Kernel kernel = packed ? fused_kernel<true, 2> : unpacked[n_tail];
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFusedStageThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  // the fewest walking lanes per block (a multiple of a warp) that still fit every lane in one
+  // wave of the blocks the SMs hold at this shared-memory size
+  const int slots = sms * std::max(per_sm, 1);
+  const int block_lanes = std::min(
+      kFusedMaxLanes, std::max(32, (et::blocks_for(lanes, slots) + 31) / 32 * 32));
+  const int threads = std::max(block_lanes, kFusedStageThreads);
+  kernel<<<et::blocks_for(lanes, block_lanes), threads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)xs, (const uint8_t*)fused, cols, (const int32_t*)entries, (int32_t*)out,
+      (int32_t*)exits, k_len, lanes, m, mt, s, n_valid, block_lanes);
   return (int)cudaGetLastError();
 }
 

@@ -278,11 +278,28 @@ def fused_pass_plain(xs: torch.Tensor, t_fused: torch.Tensor,
     return out, state.int()
 
 
+def fused_chain_table(t_fused: torch.Tensor, s: int, mt: int) -> torch.Tensor:
+    """The next state of the one-pass decode as a table of (byte, state)
+    alone, as the fused kernel derives it in shared memory: uint8[256, s]
+    with ``chain[x, state] = tail_end[x, p] if p > 0 else merged[x, state]``,
+    ``p = pv[x, state] & 15`` (the columns of ``t_fused`` uint8[256,
+    2s+9(mt+2)]). :func:`fused_pass_plain` computes the same state at each
+    step, valid transition or not."""
+    cols = t_fused.shape[1]
+    tbl = t_fused.reshape(-1).long()
+    base = torch.arange(256, device=t_fused.device)[:, None] * cols
+    st = torch.arange(s, device=t_fused.device)[None, :]
+    p = tbl[base + s + st] & 15
+    nxt = torch.where(p > 0, tbl[base + 2 * s + N_P * (1 + mt) + p], tbl[base + st])
+    return nxt.to(torch.uint8)
+
+
 def fused_pass(xs: torch.Tensor, t_fused: torch.Tensor, entries: torch.Tensor,
                m: int, mt: int, s: int, packed: bool = False,
                n_valid: int | None = None):
     """Kernel 2 (replaces ``fused_pass_pallas8``); see
-    :func:`fused_pass_plain`."""
+    :func:`fused_pass_plain`. The kernel steps the state through
+    :func:`fused_chain_table`, derived per block from ``t_fused``."""
     if packed and m > 3:
         raise ValueError(f"packed fused rows need 5 + 8m <= 29 bits (m={m})")
     if packed and n_valid is None:
@@ -295,7 +312,7 @@ def fused_pass(xs: torch.Tensor, t_fused: torch.Tensor, entries: torch.Tensor,
     _build.require(entries, torch.int32, "entries", xs.device)
     cols = t_fused.shape[1]
     if lanes == 0 or t_fused.shape[0] != 256 or cols != 2 * s + N_P * (mt + 2) \
-            or t_fused.data_ptr() % 16:
+            or s % 8 or not 8 <= s <= 256 or not 1 <= mt <= 7 or t_fused.data_ptr() % 16:
         raise ValueError("fused_pass: empty lanes or a bad fused table")
     shape = (k, lanes) if packed else (k, m + 1, lanes)
     out = torch.empty(shape, dtype=torch.int32, device=xs.device)

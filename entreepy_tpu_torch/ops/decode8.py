@@ -37,13 +37,12 @@ import functools
 import numpy as np
 import torch
 
-from entreepy_tpu import format as _fmt
-from entreepy_tpu import runtime
-from entreepy_tpu.format.etformat import parse_header
-from entreepy_tpu.format.fsm8 import ByteFsm, build_byte_fsm
-from entreepy_tpu.format.hostcodec import _check_end_byte, _check_stream_bits
-from entreepy_tpu.format.huffman import CodeTable
-
+from .. import format as _fmt
+from .. import runtime
+from ..format.etformat import parse_header
+from ..format.fsm8 import ByteFsm, build_byte_fsm
+from ..format.hostcodec import _check_end_byte, _check_stream_bits
+from ..format.huffman import CodeTable
 from ..tables import ExpandTables, decode_tables, expand_tables, next_state_tensor
 from ..trace import phase
 from . import cuda_fsm8

@@ -18,12 +18,11 @@ import warnings
 import numpy as np
 import torch
 
-from entreepy_tpu.format.etformat import serialize_header
-from entreepy_tpu.format.huffman import CodeTable, build_code_table
-from entreepy_tpu.utils.stitch import stitch_flat_payload, words_to_bytes
-
+from ..format.etformat import serialize_header
+from ..format.huffman import CodeTable, build_code_table
 from ..tables import code_tensors
 from ..trace import phase
+from ..utils.stitch import stitch_flat_payload, words_to_bytes
 from .bitpack import (
     assemble_plane_payload,
     compact_payload_plane,

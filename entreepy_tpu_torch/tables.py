@@ -1,7 +1,8 @@
 """The codec's lookup tables as device tensors.
 
-The JAX package builds every table in numpy (``entreepy_tpu.format``); this
-module only carries them onto a device, as plain integers. Two JAX forms do
+The port builds every table in numpy (``format``, its copy of the JAX
+package's ``entreepy_tpu.format``); this module only carries them onto a
+device, as plain integers. Two JAX forms do
 not come across: the bf16 cast (an MXU one-hot contraction is exact only for
 values <= 255 in bf16) and the int8 value-128 form (the v5e int8 MXU rate).
 Likewise the 5-column limb table ``code_table_cols`` existed only to keep bf16
@@ -15,15 +16,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from entreepy_tpu.format.etformat import parse_header
-from entreepy_tpu.format.fsm8 import (
+from .format.etformat import parse_header
+from .format.fsm8 import (
     ByteFsm,
     build_byte_fsm,
     expand_tensors,
     fused_decode_tensors,
     split_expand_tensors,
 )
-from entreepy_tpu.format.huffman import CodeTable
+from .format.huffman import CodeTable
 
 
 @dataclass(frozen=True)

@@ -2,7 +2,7 @@
 
 Every stage of ``ops.encode.compress_device`` and
 ``ops.decode8.decompress_device`` runs inside :func:`phase`. Normally that is
-the JAX package's framework-free ``phase``: one stderr line per stage when
+``utils.trace.phase``: one stderr line per stage when
 ``ENTREEPY_TRACE=1``, otherwise nothing. Inside :func:`record_stages` each
 stage instead ends with a device synchronize and adds its host-clock time to
 a dict, so asynchronous device work is charged to the stage that queued it.
@@ -23,7 +23,7 @@ import time
 
 import torch
 
-from entreepy_tpu.utils.trace import phase as _env_phase
+from .utils.trace import phase as _env_phase
 
 _stages: dict[str, float] | None = None
 

@@ -213,6 +213,8 @@ def test_import_leaves_jax_out():
         "p = et.compress(b'jax-free round trip', backend='device', device='cpu')\n"
         "assert et.decompress(p, backend='device', device='cpu') == b'jax-free round trip'\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] == 'entreepy_tpu']\n"
+        "assert not bad, bad\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
@@ -251,14 +253,17 @@ def _boom():
     (None, False, None, 10, "host"),
 ])
 def test_pick_backend_matches_jax(env, runtime_ok, fast, n, want, apis, monkeypatch):
-    from entreepy_tpu import runtime
+    from entreepy_tpu import runtime as jruntime
+
+    from entreepy_tpu_torch import runtime as truntime
 
     japi, tapi = apis
     assert (tapi.POD_DEVICE_MIN, tapi.DEVICE_MIN_BYTES, tapi.H2D_MIN_BYTES_PER_S) == (
         japi.POD_DEVICE_MIN, japi.DEVICE_MIN_BYTES, japi.H2D_MIN_BYTES_PER_S)
     if env is not None:
         monkeypatch.setenv("ENTREEPY_DEVICE_MIN", env)
-    monkeypatch.setattr(runtime, "available", lambda: runtime_ok)
+    for runtime in (jruntime, truntime):  # each package asks its own host runtime
+        monkeypatch.setattr(runtime, "available", lambda: runtime_ok)
     for mod in (japi, tapi):
         monkeypatch.setattr(mod, "_h2d_fast", _boom if fast is None else (lambda: fast))
     jax_pick = japi._pick_backend(None, n)

@@ -101,6 +101,74 @@ def test_fused_pass(kind, chunk, packed, dev):
     assert torch.equal(torch.where(live, sk, 0), torch.where(live, sp, 0))
 
 
+def _widest_tables(dev):
+    """The widest one-pass table: s = 256 live states and m = 8 symbols per
+    byte (a 1-bit code beside 255 longer ones), 151,808 B fused + 65,536 B
+    chain table in shared memory."""
+    from entreepy_tpu_torch.format import build_code_table
+    from entreepy_tpu_torch.format.fsm8 import build_byte_fsm
+    from entreepy_tpu_torch.tables import decode_tables
+
+    counts = np.arange(1, 257, dtype=np.int64)
+    counts[0] = 1 << 40
+    t = decode_tables(build_byte_fsm(build_code_table(counts)), dev)
+    assert (t.s, t.m, t.mt, t.fused.shape[1]) == (256, 8, 7, 593)
+    return t
+
+
+def _pruned_tables(dev):
+    """The text corpus's one-pass tables with two codes removed: their bits
+    walk dead trie edges, so random bytes hit invalid transitions."""
+    from entreepy_tpu_torch.format.fsm8 import build_byte_fsm
+    from entreepy_tpu_torch.format.huffman import CodeTable
+    from entreepy_tpu_torch.tables import decode_tables
+
+    table = body_for(et.compress(_corpus("text"), backend="host"))[0]
+    lengths, codes = table.lengths.copy(), table.codes.copy()
+    for sym in b"eq":
+        lengths[sym] = codes[sym] = 0
+    return decode_tables(build_byte_fsm(CodeTable(codes, lengths)), dev)
+
+
+@pytest.mark.parametrize("kind,lanes,k", [
+    ("text", 1, 512), ("text", 31, 512), ("text", 33, 50), ("text", 65, 512),
+    ("text", 5958, 512), ("text", 65536, 512), ("skewed", 1, 5), ("skewed", 33, 512),
+    ("skewed", 5911, 512), ("skewed", 65536, 512), ("widest", 65, 512),
+    ("widest", 5958, 512), ("widest", 31, 37), ("pruned", 33, 512), ("pruned", 5958, 512),
+])
+def test_fused_pass_lanes(kind, lanes, k, dev):
+    """The fused kernel at edge lane counts (one walking lane, part warps, a
+    65,536-lane tile), chunk lengths off the byte ring, and the widest table,
+    on random bytes (corrupt streams; with a pruned code table they hit
+    invalid transitions): exits and row 0 exact, symbol slots where live."""
+    t = {"widest": _widest_tables, "pruned": _pruned_tables}.get(
+        kind, lambda d: _body(kind, 512, d)[1])(dev)
+    packed = t.m <= 3
+    rng = np.random.default_rng(lanes + k)
+    xs = torch.from_numpy(rng.integers(0, 256, (k, lanes), dtype=np.uint8)).to(dev)
+    entries = torch.from_numpy(rng.integers(0, t.s, lanes).astype(np.int32)).to(dev)
+    args = (xs, t.fused, entries, t.m, t.mt, t.s, packed, k * lanes - k // 2)
+    before = cuda_fsm8.fused_pass.launches
+    vk, xk = cuda_fsm8.fused_pass(*args)
+    vp, xp = cuda_fsm8.fused_pass_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_fsm8.fused_pass.launches == before + 1
+    assert torch.equal(xk, xp)
+    m = t.m
+    j = torch.arange(m, device=dev)[None, :, None]
+    if packed:
+        row0k, row0p = vk >> (8 * m), vp >> (8 * m)
+        sh = (8 * (m - 1 - j)).int()
+        sk, sp = (vk[:, None] >> sh) & 255, (vp[:, None] >> sh) & 255
+    else:
+        row0k, row0p, sk, sp = vk[:, 0], vp[:, 0], vk[:, 1:], vp[:, 1:]
+    assert torch.equal(row0k, row0p)
+    if kind == "pruned":
+        assert bool((row0p >= 16).any())
+    live = j < (row0p & 15)[:, None]
+    assert torch.equal(torch.where(live, sk, 0), torch.where(live, sp, 0))
+
+
 @pytest.mark.parametrize("kind,chunk", [("text", 1), ("skewed", 3), ("text", 512),
                                         ("runheavy", 512)])
 def test_emit_pass(kind, chunk, dev):
@@ -207,18 +275,33 @@ def test_pack_blocks(kind, lanes, steps, dev):
     assert torch.equal(live_k, torch.where(ep, wp.view(torch.int32), 0))
 
 
-@pytest.mark.parametrize("k,lanes,sub,cap", [(512, 100, 256, 64), (96, 33, 24, 16),
-                                             (64, 1, 64, 64)])
+@pytest.mark.parametrize("k,lanes,sub,cap", [
+    (512, 100, 256, 64), (96, 33, 24, 16), (64, 1, 64, 64),
+    (256, 130, 256, 64),     # sub = k: one group
+    (128, 70, 128, 16),      # cap far below the live count: counts overflow it
+    (96, 129, 32, 32),       # cap = sub
+    (400, 65, 200, 48),      # a subgroup across chunks of staged rows
+    (1024, 5079, 256, 64),   # the encode plane (5.2 MB text, 1 KiB blocks)
+    (2048, 5911, 32, 32),    # the m > 3 one-pass decode (5 MB skewed)
+    (1536, 5958, 24, 24),    # the two-pass text rows (m = 3)
+    (600, 40, 600, 600),     # a whole chunk's rows in one subgroup
+    (2000, 9, 2000, 2000),   # a cap wider than the output tile: the serial kernel
+])
 def test_compact_rows(k, lanes, sub, cap, dev):
     rng = np.random.default_rng(k + lanes)
     wk = torch.from_numpy(rng.integers(-2**31, 2**31, (k, lanes)).astype(np.int32)).to(dev)
-    ek = torch.from_numpy(rng.random((k, lanes)) < 0.3).to(dev)
+    ek = torch.from_numpy(rng.random((k, lanes)) < (0.5 if cap < sub // 4 else 0.3)).to(dev)
     ek[:, 0] = False  # all-dead lane
     if lanes > 1:
         ek[:, 1] = True  # full lane: truncated at cap
+    before = cuda_compact.compact_rows.launches
     got = cuda_compact.compact_rows(wk, ek, sub, cap)
     want = cuda_compact.compact_rows_plain(wk, ek, sub, cap)
+    torch.cuda.synchronize()
+    assert cuda_compact.compact_rows.launches == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if cap < sub:
+        assert bool((want[1] > cap).any())  # some subgroup overflows its cap
 
 
 def test_wrappers_reject_bad_operands(dev):

@@ -136,3 +136,55 @@ def test_fixed_point_driver_matches_jax(name, chunk, packed, entry0, request):
     assert unconv is bool(want_unconv) is False
     assert np.array_equal(exits.numpy(), np.asarray(want_exits))
     _assert_rows_equal(got.numpy(), want, m, packed)
+
+
+def _chain_table_case(name: str, request):
+    """A corpus's code table, or a random one with symbols pruned (their bits
+    then walk dead trie edges: invalid transitions)."""
+    from entreepy_tpu.format import build_code_table, histogram
+    from entreepy_tpu.format.huffman import CodeTable
+
+    if not name.startswith("pruned"):
+        data = SKEWED if name == "skewed" else request.getfixturevalue(name)
+        return build_code_table(histogram(np.frombuffer(data, np.uint8)))
+    rng = np.random.default_rng(int(name[-1]))
+    counts = np.zeros(256, np.int64)
+    syms = rng.choice(256, int(rng.integers(3, 256)), replace=False)
+    counts[syms] = rng.integers(1, 10_000, syms.size) ** 2
+    table = build_code_table(counts)
+    lengths, codes = table.lengths.copy(), table.codes.copy()
+    for sym in rng.choice(syms, min(3, syms.size - 2), replace=False):
+        lengths[sym] = codes[sym] = 0
+    return CodeTable(codes, lengths)
+
+
+@pytest.mark.parametrize("name", ["macbeth", "midsummer", "skewed", "pruned0", "pruned1",
+                                  "pruned2"])
+def test_fused_chain_table_identity(name, request):
+    """The fused kernel steps the state through fused_chain_table: for every
+    (byte, state) it equals the next state of the plain fused step (p > 0 ?
+    tail_end : merged), the FSM's own next state on every valid transition,
+    and a walk through it ends where the plain pass ends, invalid
+    transitions included."""
+    fsm = build_byte_fsm(_chain_table_case(name, request))
+    t = decode_tables(fsm, "cpu")
+    m, mt, s = t.m, t.mt, t.s
+    chain = cuda_fsm8.fused_chain_table(t.fused, s, mt)
+    assert chain.shape == (256, s) and chain.dtype == torch.uint8
+    xs = torch.arange(256, dtype=torch.uint8).repeat_interleave(s)[None, :]
+    _, nxt = cuda_fsm8.fused_pass_plain(xs, t.fused, torch.arange(s, dtype=torch.int32).repeat(256),
+                                        m, mt, s)
+    assert torch.equal(nxt.reshape(256, s).to(torch.uint8), chain)
+    valid = fsm.counts[:s].T >= 0
+    assert np.array_equal(chain.numpy()[valid], fsm.next_state[:s].T[valid])
+    assert int(chain.max()) < s
+    rng = np.random.default_rng(len(name))
+    rows = torch.from_numpy(rng.integers(0, 256, (96, 40), dtype=np.uint8))
+    entries = torch.from_numpy(_entries(fsm, 40, 5))
+    vals, exits = cuda_fsm8.fused_pass_plain(rows, t.fused, entries, m, mt, s)
+    state = entries.long()
+    for row in rows.long():
+        state = chain[row, state].long()
+    assert torch.equal(state.int(), exits)
+    if name.startswith("pruned"):  # the random streams hit invalid transitions
+        assert not valid[:, :fsm.n_states].all() and bool((vals[:, 0] >= 16).any())

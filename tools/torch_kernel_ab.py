@@ -1,0 +1,268 @@
+#!/usr/bin/env python3
+"""Kernel times of two checkouts of entreepy_tpu_torch, in turns, on one card.
+
+    python3 tools/torch_kernel_ab.py NAME=ROOT NAME=ROOT [--order A,B,B,A] [--out FILE]
+
+Each NAME=ROOT names the root of a checkout (for a parent commit:
+``git archive <commit> | tar -x -C build/ab_parent``). Every turn of
+``--order`` (default: first, second, second, first) runs in a process of its
+own, because both packages are named ``entreepy_tpu_torch``. The process
+builds that checkout's kernels and times its ``fused_pass`` and
+``compact_rows`` at the shapes of the main path, on inputs made the same way
+in every turn:
+
+* fused_pass, packed: the 5.2 MB text body (5,958 lanes) and a 65,536-lane
+  tile of the 100 MB text body; unpacked: the 5 MB skewed body (m = 4) and
+  the 5 MB run-heavy body (m = 8);
+* compact_rows: the encode plane of the 5.2 MB text (1 KiB blocks), the
+  one-pass decode's m > 3 rows of the skewed body, the two-pass rows of the
+  text body (split table) and of the run-heavy body (full table).
+
+Entry states are the converged ones of the checkout's own fixed-point loop.
+A time is 50 back-to-back launches between one CUDA-event pair, divided by
+the count, median of 5 such runs; each result is also held against the
+checkout's plain version (max |err| over live values, must be 0). The bound is
+the bytes the call must move (inputs read once, outputs written once) at the
+card's 3.35 TB/s. Prints one line per turn and shape, the card's name and
+power limit, and a JSON summary (also written to ``--out``). Needs a CUDA
+card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s (NVIDIA's data sheet)
+MB = 1_000_000
+DEVICE = "cuda"
+TEXT_BYTES = 5_200_000  # bench.py's text corpus
+
+
+def corpus(root: Path, kind: str, n: int) -> bytes:
+    """The corpus families of benchmarks/scale.py (the same generators, seed
+    1234), the text one from the checkout at ``root``."""
+    import numpy as np
+
+    rng = np.random.default_rng(1234)
+    if kind == "text":
+        src = (root / "tests" / "data" / "a_midsummer_nights_dream.txt").read_bytes()
+        return (src * (-(-n // len(src))))[:n]
+    if kind == "random":
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    if kind == "skewed":
+        p = 1.0 / np.arange(1, 257) ** 1.3
+        return rng.choice(256, size=n, p=p / p.sum()).astype(np.uint8).tobytes()
+    if kind == "runheavy":
+        unit = b"a" * 4096 + rng.integers(0, 256, 256, dtype=np.uint8).tobytes()
+        return (unit * (-(-n // len(unit))))[:n]
+    raise ValueError(kind)
+
+
+def kernel_ms(fn, launches: int = 50, runs: int = 5) -> float:
+    """Device time of one launch of ``fn()`` in ms: ``launches``
+    back-to-back launches between one CUDA-event pair, divided by the count;
+    median of ``runs`` such runs after one warm-up call. A device-side sleep
+    queued first keeps the queue full while the host enqueues them, so the
+    host's per-launch cost (checks, ctypes) opens no gaps between kernels."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
+def bound_ms(*tensors) -> float:
+    """Least time to move ``tensors`` through device memory once (the inputs
+    read, the outputs written), at the card's published rate. Integer work
+    per byte is a few table reads, so bytes, not operations, bound these
+    kernels."""
+    return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_MS
+
+
+def max_err(a, b, live=None) -> int:
+    """Largest |a - b| over the live elements."""
+    import torch
+
+    d = (a.long() - b.long()).abs()
+    if live is not None:
+        d = torch.where(live, d, 0)
+    return int(d.max()) if d.numel() else 0
+
+
+def _worker(root: Path) -> dict:
+    """Times of one checkout's two kernels (see the module docstring)."""
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+
+    import entreepy_tpu_torch as et
+    from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, decode8
+    from entreepy_tpu_torch.ops.bitpack import grouped_counts_plane, plane_cap_g, plane_sub_for
+    from entreepy_tpu_torch.ops.encode import DEFAULT_BLOCK_BYTES
+    from entreepy_tpu_torch.tables import code_tensors_for, decode_tables_for, expand_tables_for
+
+    assert Path(et.__file__).resolve().is_relative_to(root.resolve()), et.__file__
+    dev = torch.device(DEVICE)
+
+    def body_xs(buf: np.ndarray):
+        chunk = decode8.DEFAULT_CHUNK_BYTES
+        lanes = -(-buf.size // chunk)
+        padded = np.zeros(lanes * chunk, np.uint8)
+        padded[: buf.size] = buf
+        return decode8.bytes_to_cols(padded, lanes, chunk, dev).t().contiguous(), lanes
+
+    out = {}
+
+    def fused(label: str, blob: bytes, n_lanes: int | None = None):
+        tables, buf = decode_tables_for(blob, dev)
+        if n_lanes is not None:
+            buf = buf[: n_lanes * decode8.DEFAULT_CHUNK_BYTES]
+        xs, lanes = body_xs(buf)
+        m, mt, s, packed = tables.m, tables.mt, tables.s, tables.m <= 3
+        _, exits, unconverged = decode8.fsm8_decode_fused(
+            xs.t().contiguous(), tables.next_state, tables.fused, lanes, m, mt, s,
+            packed=packed, n_valid=buf.size)
+        assert not unconverged
+        entries = torch.cat([exits.new_zeros(1), exits[:-1]])
+        args = (xs, tables.fused, entries, m, mt, s, packed, buf.size)
+        vk, xk = cuda_fsm8.fused_pass(*args)
+        vp, xp = cuda_fsm8.fused_pass_plain(*args)
+        j = torch.arange(m, device=dev)[None, :, None]
+        if packed:
+            sh = (8 * (m - 1 - j)).int()
+            r0k, r0p = vk >> (8 * m), vp >> (8 * m)
+            sk, sp = (vk[:, None, :] >> sh) & 255, (vp[:, None, :] >> sh) & 255
+        else:
+            r0k, r0p, sk, sp = vk[:, 0], vp[:, 0], vk[:, 1:], vp[:, 1:]
+        e = max(max_err(r0k, r0p), max_err(xk, xp),
+                max_err(sk, sp, j < (r0p & 15)[:, None, :]))
+        out[f"fused_pass {label}"] = {
+            "ms": kernel_ms(lambda: cuda_fsm8.fused_pass(*args)),
+            "bound_ms": bound_ms(xs, tables.fused, entries, vk, xk),
+            "max_abs_err": e, "shape": f"{lanes} lanes x {xs.shape[0]} B, m={m} s={s}"}
+
+    def compact(label: str, rows, live, sub: int, cap: int):
+        ck = cuda_compact.compact_rows(rows, live, sub, cap)
+        cp = cuda_compact.compact_rows_plain(rows, live, sub, cap)
+        out[f"compact_rows {label}"] = {
+            "ms": kernel_ms(lambda: cuda_compact.compact_rows(rows, live, sub, cap)),
+            "bound_ms": bound_ms(rows, live, *ck),
+            "max_abs_err": max(max_err(ck[0], cp[0]), max_err(ck[1], cp[1])),
+            "shape": f"{tuple(rows.shape)}, sub {sub}, cap {cap}"}
+
+    def two_pass_rows(blob: bytes, split: bool):
+        """The two-pass route's compaction operands of a body."""
+        tables, buf = expand_tables_for(blob, dev, split)
+        xs, lanes = body_xs(buf)
+        states, unconverged = decode8.fsm8_decode(xs, tables.next_state, lanes)
+        assert not unconverged
+        m = tables.m
+        if split:
+            vals = cuda_fsm8.expand_pass_split(xs, states, tables.table, m, tables.mt)
+        else:
+            vals = cuda_fsm8.expand_pass(xs, states, tables.table, m)
+        counts, _inv, syms = decode8._expand_mask(vals[:, 0], vals[:, 1:].to(torch.uint8),
+                                                  buf.size)
+        return rows_of(counts, syms, m)
+
+    def rows_of(counts, syms, m: int):
+        k, lanes = counts.shape
+        j = torch.arange(m, device=dev)[None, :, None]
+        live = (j < counts[:, None, :]).reshape(k * m, lanes)
+        return (syms.reshape(k * m, lanes).to(torch.int32), live,
+                decode8._sub_width(k) * m, decode8.sym_cap(counts, m))
+
+    text = corpus(root, "text", TEXT_BYTES)
+    blobs = {"text": et.compress(text, backend="host"),
+             "skewed": et.compress(corpus(root, "skewed", 5 * MB), backend="host"),
+             "runheavy": et.compress(corpus(root, "runheavy", 5 * MB), backend="host")}
+    fused("packed, text 5.2 MB", blobs["text"])
+    fused("packed, 65,536-lane tile of text 100 MB",
+          et.compress(corpus(root, "text", 100 * MB), backend="host"), 65536)
+    fused("unpacked, skewed 5 MB", blobs["skewed"])
+    fused("unpacked, runheavy 5 MB", blobs["runheavy"])
+
+    n_blocks = -(-len(text) // DEFAULT_BLOCK_BYTES)
+    flat = torch.zeros(n_blocks * DEFAULT_BLOCK_BYTES, dtype=torch.uint8, device=dev)
+    flat[: len(text)] = torch.frombuffer(bytearray(text), dtype=torch.uint8).to(dev)
+    valid = torch.full((n_blocks,), DEFAULT_BLOCK_BYTES, dtype=torch.int32, device=dev)
+    valid[-1] = len(text) - (n_blocks - 1) * DEFAULT_BLOCK_BYTES
+    codes, lengths = code_tensors_for(blobs["text"], dev)
+    words, emitted, _acc, _nbits = cuda_pack.pack_blocks(
+        flat.reshape(n_blocks, DEFAULT_BLOCK_BYTES), valid, codes, lengths)
+    sub = plane_sub_for(DEFAULT_BLOCK_BYTES)
+    compact("encode plane, text 5.2 MB", words.view(torch.int32).t().contiguous(),
+            emitted.t().contiguous(), sub,
+            plane_cap_g(int(grouped_counts_plane(emitted).max()), DEFAULT_BLOCK_BYTES))
+
+    tables, buf = decode_tables_for(blobs["skewed"], dev)
+    xs, lanes = body_xs(buf)
+    vals, _, _ = decode8.fsm8_decode_fused(xs.t().contiguous(), tables.next_state,
+                                           tables.fused, lanes, tables.m, tables.mt, tables.s)
+    counts, _inv, syms = decode8._expand_mask(vals[:, 0], vals[:, 1:].to(torch.uint8), buf.size)
+    compact("one-pass m > 3 rows, skewed 5 MB", *rows_of(counts, syms, tables.m))
+    compact("split-route rows, text 5.2 MB", *two_pass_rows(blobs["text"], True))
+    compact("fused-route rows, runheavy 5 MB", *two_pass_rows(blobs["runheavy"], False))
+    assert all(r["max_abs_err"] == 0 for r in out.values()), out
+    return out
+
+
+def main(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="*", metavar="NAME=ROOT")
+    ap.add_argument("--order", help="comma-separated names (default: A,B,B,A)")
+    ap.add_argument("--out", help="also write the JSON summary here")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        print(json.dumps(_worker(Path(args.worker))))
+        return 0
+    trees = dict(t.split("=", 1) for t in args.trees)
+    if len(trees) != 2:
+        ap.error("give two checkouts, NAME=ROOT each")
+    a, b = trees
+    order = args.order.split(",") if args.order else [a, b, b, a]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    turns = []
+    for i, name in enumerate(order, 1):
+        root = Path(trees[name]).resolve()
+        r = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker",
+                            str(root)], cwd=root, capture_output=True, text=True,
+                           env={**os.environ, "PYTHONPATH": str(root)}, timeout=900)
+        if r.returncode != 0:
+            print(r.stderr[-4000:], file=sys.stderr)
+            return r.returncode
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        turns.append({"turn": i, "tree": name, "results": res})
+        for label, v in res.items():
+            print(f"[ab] turn {i} {name}: {label} ({v['shape']}): {v['ms']:.4f} ms, bound "
+                  f"{v['bound_ms']:.4f} ms ({v['bound_ms'] / v['ms']:.1%}), max_abs_err "
+                  f"{v['max_abs_err']} | {card}")
+    print(card)
+    summary = {"card": card, "order": order, "turns": turns}
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(summary, indent=1))
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
