@@ -17,7 +17,8 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              compaction also on each expansion's rows, as the two-pass
              routes give them), bit-identical on every live value;
              the sync and fused passes also at a full 65,536-lane tile of the
-             100 MB text body; a kernel's time is a run of back-to-back launches between
+             100 MB text body, the pack at a full 32 MiB encode tile of the
+             100 MB text; a kernel's time is a run of back-to-back launches between
              one CUDA-event pair, divided by the count; a plain version's is
              the median CUDA-event time of single calls; each kernel's bound
              is the bytes it must move (each input read once, each output
@@ -86,7 +87,7 @@ from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, decode8  
 from entreepy_tpu_torch.ops.bitpack import (  # noqa: E402
     grouped_counts_plane, plane_cap_g, plane_sub_for,
 )
-from entreepy_tpu_torch.ops.encode import DEFAULT_BLOCK_BYTES  # noqa: E402
+from entreepy_tpu_torch.ops.encode import DEFAULT_BLOCK_BYTES, TILE_BLOCKS  # noqa: E402
 from entreepy_tpu_torch.tables import (  # noqa: E402
     body_for, code_tensors_for, decode_tables_for, expand_tables_for,
 )
@@ -269,6 +270,21 @@ def expand_check(blob: bytes, split: bool):
     return expand, compact, tables, (sub, cap)
 
 
+def pack_check(data: bytes, blob: bytes):
+    """Pack kernel vs plain on ``data`` in the encode's blocks, with the
+    code table of ``blob``: emitted, acc and nbits exact, words where
+    emitted. Returns ((err, ms, plain_ms, bound_ms, library_ms), the
+    kernel's results)."""
+    blocks, valid = ab.encode_blocks(data, DEFAULT_BLOCK_BYTES, DEV)
+    codes, lengths = code_tensors_for(blob, DEV)
+    pk = cuda_pack.pack_blocks(blocks, valid, codes, lengths)
+    err = ab.pack_err(pk, cuda_pack.pack_blocks_plain(blocks, valid, codes, lengths))
+    require(err == 0, f"kernel and plain version differ (max |err| {err})")
+    return (err, kernel_ms(lambda: cuda_pack.pack_blocks(blocks, valid, codes, lengths)),
+            cuda_ms(lambda: cuda_pack.pack_blocks_plain(blocks, valid, codes, lengths), 3),
+            bound_ms(blocks, valid, codes, lengths, *pk), None), pk
+
+
 def fused_check(xs, tables, n_valid, lanes, packed: bool):
     """Fused kernel vs plain at converged entry states: row0/count bytes and
     exits exact, symbol slots compared where live (j < count). Returns (err,
@@ -429,23 +445,8 @@ def main(argv: list[str]) -> int:
     results[cuda_fsm8.fused_pass] = fused_check(xs, tables, n_valid, lanes, True)
     results[cuda_fsm8.emit_pass] = emit_check(xs, tables.next_state)
 
-    n_blocks = -(-len(text) // DEFAULT_BLOCK_BYTES)
-    blocks = torch.zeros(n_blocks * DEFAULT_BLOCK_BYTES, dtype=torch.uint8, device=DEV)
-    blocks[: len(text)] = torch.frombuffer(bytearray(text), dtype=torch.uint8).to(DEV)
-    blocks = blocks.reshape(n_blocks, DEFAULT_BLOCK_BYTES)
-    valid = torch.full((n_blocks,), DEFAULT_BLOCK_BYTES, dtype=torch.int32, device=DEV)
-    valid[-1] = len(text) - (n_blocks - 1) * DEFAULT_BLOCK_BYTES
-    codes, lengths = code_tensors_for(et.compress(text, backend="host"), DEV)
-    pk = cuda_pack.pack_blocks(blocks, valid, codes, lengths)
-    pp = cuda_pack.pack_blocks_plain(blocks, valid, codes, lengths)
-    results[cuda_pack.pack_blocks] = (
-        max(max_err(pk[0].view(torch.int32), pp[0].view(torch.int32), pp[1]),
-            max_err(pk[1], pp[1]), max_err(pk[2].view(torch.int32), pp[2].view(torch.int32)),
-            max_err(pk[3], pp[3])),
-        kernel_ms(lambda: cuda_pack.pack_blocks(blocks, valid, codes, lengths)),
-        cuda_ms(lambda: cuda_pack.pack_blocks_plain(blocks, valid, codes, lengths), 3),
-        bound_ms(blocks, valid, codes, lengths, *pk), None,
-    )
+    results[cuda_pack.pack_blocks], pk = pack_check(text, et.compress(text, backend="host"))
+    n_blocks = pk[1].shape[0]
 
     # the compaction at the encode plane's shapes first (the JSON line's times)
     sub = plane_sub_for(DEFAULT_BLOCK_BYTES)
@@ -481,9 +482,14 @@ def main(argv: list[str]) -> int:
     merge(cuda_fsm8.fused_pass, res)
     show(f"fused_pass unpacked, skewed body {sk_valid} B: {sk_lanes} lanes, m={sk_tables.m} "
          f"table {tuple(sk_tables.fused.shape)} ({sk_tables.fused.numel()} B shared)", res)
+    # a full tile of the streaming encode: the 100 MB text's first 32 MiB
+    big_text = corpus("text", 100 * MB)
+    big_blob = et.compress(big_text, backend="host")
+    res, _ = pack_check(big_text[: TILE_BLOCKS * DEFAULT_BLOCK_BYTES], big_blob)
+    merge(cuda_pack.pack_blocks, res)
+    show(f"pack_blocks, a {TILE_BLOCKS}-block encode tile of the 100 MB text", res)
     # a full tile of the streaming decode: the 100 MB text body's first 65,536 lanes
-    big_tables, big_buf = decode_tables_for(et.compress(corpus("text", 100 * MB),
-                                                        backend="host"), DEV)
+    big_tables, big_buf = decode_tables_for(big_blob, DEV)
     tile = big_buf[: decode8.TILE_LANES * decode8.DEFAULT_CHUNK_BYTES]
     tile_xs, tile_lanes = body_xs(tile)
     res = sync_check(tile_xs, big_tables.next_state)
@@ -501,7 +507,7 @@ def main(argv: list[str]) -> int:
     print("[kernels] library: the full-table expansion is one advanced-indexing call "
           "(table[byte, j*S + state]); no single PyTorch call computes the others: the "
           "sync, emit and fused passes are serial per-lane walks, the pack a per-block "
-          "bit-serial scan, the compaction a per-column stable compaction")
+          "prefix sum and bit scatter, the compaction a per-column stable compaction")
     # 4. end to end, through the public API: each main path with its counts from 0
     golden = (DATA / "nice.shakespeare.txt").read_bytes()
     cases = [("text 5.2 MB", text)] + [

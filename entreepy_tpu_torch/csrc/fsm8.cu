@@ -14,14 +14,13 @@
 // What bounds them on the card: the serial state chain. A lane cannot start byte k+1 before
 // byte k's state is known. A pass therefore takes about K x (chain latency) once every lane has a
 // thread; device-memory traffic is small (1 B read per body byte; emit: 1 B written; fused: 4 B
-// written packed, 4(m+1) B unpacked). The sync and emit passes:
-//   * stage the next_state table (S x 256 B, at most 64 KB) in shared memory once per block,
+// written packed, 4(m+1) B unpacked). Every pass reads bytes from the [K, lanes] layout, so a
+// warp's loads at step k are one 32-byte sector. The emit pass:
+//   * stages the next_state table (S x 256 B, at most 64 KB) in shared memory once per block,
 //     raising the block's dynamic shared-memory cap above 48 KB where needed;
-//   * read bytes from the [K, lanes] layout, so a warp's loads at step k are one 32-byte
-//     sector and its stores one 128-byte line;
-//   * keep blocks at 64 threads so a body's lanes spread over as many SMs as possible.
-// The fused pass's own design (bytes fetched ahead, a derived chain table) is noted at its
-// kernel below.
+//   * keeps blocks at 64 threads so a body's lanes spread over as many SMs as possible.
+// The sync and fused passes' own designs (bytes fetched ahead, lanes per block sized to the
+// card) are noted at their kernels below.
 //
 // Table layouts are those of format/fsm8.py (the JAX package's, copied), as uint8:
 //   next_state[S, 256]                       (ByteFsm.next_state)
@@ -34,15 +33,64 @@
 
 namespace {
 
-__global__ void sync_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ next_state,
-                            int n_states, const int32_t* __restrict__ entries,
-                            int32_t* __restrict__ exits, int w, int lanes) {
+// Byte k of a lane's column for k < k_len (the loads are issued, not awaited).
+template <int R>
+__device__ __forceinline__ void load_ring(uint32_t (&ring)[R], const uint8_t* col, int k0,
+                                          int k_len, int lanes) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) ring[r] = k0 + r < k_len ? col[(size_t)(k0 + r) * lanes] : 0;
+}
+
+// ---- sync_pass: the suffix walk that guesses each chunk's entry state ----
+//
+// Replaces sync_pass_pallas8 (_sync8_kernel). Each lane walks the last w <= 128 bytes of its
+// chunk from the root, state = next_state[state][x], and returns the state it ends in. What
+// bounds it on this card is that chain (w dependent shared-memory loads) plus staging the table
+// and the launch; the bytes are a few MB at most. So:
+//   * no device load on the chain: a thread fetches its lane's bytes into register rings of
+//     kSyncRing bytes two rings before the chain reaches them, and the first two rings' loads
+//     are issued before the table is staged, so their latency hides behind the staging;
+//   * a ring's steps have a compile-time count, so its unrolled steps are one basic block; the
+//     last, partial ring (w need not be a multiple of a ring) is guarded step by step;
+//   * the table (S x 256 B, at most 64 KB) is staged with cp.async, every copy in flight at once;
+//   * lanes per block: the fewest that still put one block on each SM (at most kSyncMaxLanes),
+//     so a body of a few thousand lanes spreads over every SM and a 65,536-lane tile stages the
+//     table once per 512 lanes, not once per 64. A block has at least kStageThreads threads
+//     for the staging; the rest return after it.
+constexpr int kSyncRing = 16;
+constexpr int kSyncMaxLanes = 512;  // walking threads per block (3 rings of 16 in registers)
+constexpr int kStageThreads = 256;  // threads per block at least, for staging a table
+
+__global__ void __launch_bounds__(kSyncMaxLanes)
+    sync_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ next_state,
+                int n_states, const int32_t* __restrict__ entries, int32_t* __restrict__ exits,
+                int w, int lanes, int block_lanes) {
   extern __shared__ __align__(16) uint8_t tbl[];
-  et::stage_table(tbl, next_state, n_states * 256);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  int state = entries[lane];
-  for (int k = 0; k < w; ++k) state = tbl[state * 256 + xs[(size_t)k * lanes + lane]];
+  constexpr int R = kSyncRing;
+  const int lane = blockIdx.x * block_lanes + threadIdx.x;
+  const bool walks = (int)threadIdx.x < block_lanes && lane < lanes;
+  const uint8_t* col = xs + lane;
+  uint32_t xa[R], xb[R];  // the ring being walked and the next one
+  int state = 0;
+  if (walks) {
+    state = entries[lane];
+    load_ring(xa, col, 0, w, lanes);
+    load_ring(xb, col, R, w, lanes);
+  }
+  et::stage_table_async(tbl, next_state, n_states * 256);
+  if (!walks) return;
+  int k0 = 0;
+  for (; k0 + R <= w; k0 += R) {
+    uint32_t ahead[R];
+    load_ring(ahead, col, k0 + 2 * R, w, lanes);
+#pragma unroll
+    for (int r = 0; r < R; ++r) state = tbl[state * 256 + xa[r]];
+#pragma unroll
+    for (int r = 0; r < R; ++r) xa[r] = xb[r], xb[r] = ahead[r];
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (k0 + r < w) state = tbl[state * 256 + xa[r]];
   exits[lane] = state;
 }
 
@@ -88,7 +136,7 @@ __global__ void emit_kernel(const uint8_t* __restrict__ xs, const uint8_t* __res
 //   * blocks: the walking lanes of a block are sized from the lane count and the blocks that fit
 //     an SM at this shared-memory size, so a small body spreads over every SM in one wave and a
 //     65,536-lane tile stages the tables once per block, not once per 64 lanes. A block has at
-//     least kFusedStageThreads threads for the staging and the derivation; the rest return.
+//     least kStageThreads threads for the staging and the derivation; the rest return.
 // Device-memory traffic per byte: 1 B read; 4 B written packed, 4(m + 1) B unpacked.
 //
 // PACKED (m <= 3): one word per byte, row0 << 8m | slot_j << 8(m-1-j), with row0 zeroed at
@@ -98,19 +146,10 @@ __global__ void emit_kernel(const uint8_t* __restrict__ xs, const uint8_t* __res
 // registers (at 16 the unpacked kernel reaches 128 registers and runs slower).
 template <bool PACKED>
 constexpr int kRing = PACKED ? 16 : 8;
-constexpr int kFusedMaxLanes = 512;      // walking threads per block
-constexpr int kFusedStageThreads = 256;  // threads per block at least
+constexpr int kFusedMaxLanes = 512;  // walking threads per block
 
 // Byte offset of the chain table in shared memory: after the fused table, 16-byte aligned.
 __host__ __device__ inline int chain_offset(int cols) { return (256 * cols + 15) & ~15; }
-
-// Byte k of a lane's column for k < k_len (the loads are issued, not awaited).
-template <int R>
-__device__ __forceinline__ void load_ring(uint32_t (&ring)[R], const uint8_t* col, int k0,
-                                          int k_len, int lanes) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) ring[r] = k0 + r < k_len ? col[(size_t)(k0 + r) * lanes] : 0;
-}
 
 // The rows of byte x read in state st, off the chain. The stores are global (st.global.cg), so
 // the compiler may move the next steps' shared-memory loads above them. NT: the tail slots,
@@ -238,16 +277,28 @@ extern "C" {
 
 const char* et_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
+static cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
 int et_sync_pass(const void* xs, const void* next_state, int n_states, const void* entries,
                  void* exits, int w, int lanes, void* stream) {
   const int smem = n_states * 256;
   cudaError_t err =
       cudaFuncSetAttribute(sync_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  sync_kernel<<<et::blocks_for(lanes, et::kLaneThreads), et::kLaneThreads, smem,
-                (cudaStream_t)stream>>>(
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
+  // the fewest walking lanes per block (a multiple of a warp) that put one block on each SM
+  const int block_lanes = std::min(
+      kSyncMaxLanes, std::max(32, (et::blocks_for(lanes, std::max(sms, 1)) + 31) / 32 * 32));
+  const int threads = std::max(block_lanes, kStageThreads);
+  sync_kernel<<<et::blocks_for(lanes, block_lanes), threads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)xs, (const uint8_t*)next_state, n_states, (const int32_t*)entries,
-      (int32_t*)exits, w, lanes);
+      (int32_t*)exits, w, lanes, block_lanes);
   return (int)cudaGetLastError();
 }
 
@@ -280,18 +331,16 @@ int et_fused_pass(const void* xs, const void* fused, int cols, const void* entri
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFusedStageThreads, smem);
+  int sms = 0, per_sm = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kStageThreads, smem);
   if (err != cudaSuccess) return (int)err;
   // the fewest walking lanes per block (a multiple of a warp) that still fit every lane in one
   // wave of the blocks the SMs hold at this shared-memory size
   const int slots = sms * std::max(per_sm, 1);
   const int block_lanes = std::min(
       kFusedMaxLanes, std::max(32, (et::blocks_for(lanes, slots) + 31) / 32 * 32));
-  const int threads = std::max(block_lanes, kFusedStageThreads);
+  const int threads = std::max(block_lanes, kStageThreads);
   kernel<<<et::blocks_for(lanes, block_lanes), threads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)xs, (const uint8_t*)fused, cols, (const int32_t*)entries, (int32_t*)out,
       (int32_t*)exits, k_len, lanes, m, mt, s, n_valid, block_lanes);

@@ -5,6 +5,8 @@ Counterpart of ``entreepy_tpu/ops/pallas_pack.py``; the kernel is in
 ``entreepy_tpu.ops.bitpack.pack_blocks_scan``. Both versions write their
 per-step outputs k-major (``[steps, lanes]``, what the compaction reads) and
 return ``[lanes, steps]`` transposed views of them.
+:func:`pack_blocks_scan_plain` is the kernel's decomposition (prefix sums of
+the code lengths instead of a serial accumulator) in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -66,10 +68,44 @@ def pack_blocks_plain(blocks: torch.Tensor, valid: torch.Tensor,
             hi.int().view(torch.uint32), nbits.int())
 
 
+def pack_blocks_scan_plain(blocks: torch.Tensor, valid: torch.Tensor,
+                           codes: torch.Tensor, lengths: torch.Tensor):
+    """:func:`pack_blocks_plain`'s function in the kernel's decomposition:
+    the bit offset of each step is an exclusive prefix sum of the live code
+    lengths, step j emits where ``(off_j & 31) + len_j >= 32``, and the word
+    it emits is stream word ``off_j >> 5`` of the block. The stream words
+    are built by adding every code's bits into the word(s) it lands in (the
+    bit ranges are disjoint, so the sum is the OR). Same arguments and
+    results; ``words`` holds stream word ``off_j >> 5`` at every step, dead
+    where nothing is emitted."""
+    lanes, steps = blocks.shape
+    dev = blocks.device
+    x = blocks.long()
+    live = torch.arange(steps, device=dev)[None, :] < valid.long()[:, None]
+    length = torch.where(live, lengths.long()[x], 0)
+    off = length.cumsum(1) - length
+    total = length.sum(1)
+    emitted = (off & 31) + length >= 32
+    # each code MSB-aligned in 32 bits, then split over its word and the next
+    aligned = torch.where(length > 0, ((codes.long() & _M32)[x] << (32 - length)) & _M32, 0)
+    nb = off & 31
+    idx = off >> 5
+    base = torch.arange(lanes, device=dev)[:, None] * (steps + 1)
+    sword = torch.zeros(lanes * (steps + 1), dtype=torch.int64, device=dev)
+    sword.index_add_(0, (base + idx).reshape(-1), (aligned >> nb).reshape(-1))
+    sword.index_add_(0, (base + idx + 1).reshape(-1), ((aligned << (32 - nb)) & _M32).reshape(-1))
+    sword = sword.reshape(lanes, steps + 1)
+    words = sword.gather(1, idx).int().view(torch.uint32)
+    acc = sword.gather(1, (total >> 5)[:, None])[:, 0].int().view(torch.uint32)
+    return words, emitted, acc, (total & 31).int()
+
+
 def pack_blocks(blocks: torch.Tensor, valid: torch.Tensor, codes: torch.Tensor,
                 lengths: torch.Tensor):
     """Kernel 3 (replaces ``pack_blocks_pallas``); see
-    :func:`pack_blocks_plain`."""
+    :func:`pack_blocks_plain`. The kernel computes it as
+    :func:`pack_blocks_scan_plain` does; words at steps that emit nothing
+    are unspecified."""
     if blocks.device.type == "cpu":
         return pack_blocks_plain(blocks, valid, codes, lengths)
     lanes, steps = blocks.shape

@@ -76,6 +76,25 @@ def test_sync_pass(kind, chunk, dev):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("lanes", [1, 33, 65536])
+@pytest.mark.parametrize("w", [1, 5, 17, 128])
+def test_sync_pass_windows(w, lanes, dev):
+    """The sync kernel at windows shorter than, off and on its byte ring,
+    one lane, a part warp and a 65,536-lane tile, with the skewed corpus's
+    256-state table (64 KB of shared memory), on random bytes: exits exact."""
+    t = _body("skewed", 512, dev)[1]
+    assert t.next_state.shape == (256, 256)
+    rng = np.random.default_rng(w * lanes)
+    xs = torch.from_numpy(rng.integers(0, 256, (w, lanes), dtype=np.uint8)).to(dev)
+    entries = _entries(t, lanes, dev, seed=w)
+    before = cuda_fsm8.sync_pass.launches
+    got = cuda_fsm8.sync_pass(xs, t.next_state, entries)
+    want = cuda_fsm8.sync_pass_plain(xs, t.next_state, entries)
+    torch.cuda.synchronize()
+    assert cuda_fsm8.sync_pass.launches == before + 1
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("kind,chunk,packed", [
     ("text", 512, True), ("text", 48, False), ("random", 64, True),
     ("skewed", 512, False), ("runheavy", 32, False),
@@ -248,27 +267,55 @@ def test_decode_routes(kind, expand, dev):
     assert decode8.decode_host.calls == calls
 
 
-@pytest.mark.parametrize("kind,lanes,steps", [("text", 100, 1024), ("fib", 65, 256),
-                                              ("skewed", 1, 64)])
-def test_pack_blocks(kind, lanes, steps, dev):
+@pytest.mark.parametrize("kind,lanes,steps,offset", [
+    ("text", 100, 1024, 0), ("fib", 65, 256, 0), ("skewed", 1, 64, 0),
+    ("text", 5079, 1024, 0),    # the encode plane of the 5.2 MB text
+    ("fib", 300, 1024, 0),      # many words of 31-bit codes per block
+    ("text", 70, 100, 0),       # steps off the 16-byte loads: byte loads, a part segment
+    ("skewed", 33, 1100, 0),    # more than 16 segments: two rounds
+    ("fib", 40, 2085, 0),       # three rounds, the last a part segment
+    ("text", 64, 1024, 1),      # a row that is not 16-byte aligned: byte loads
+    ("text", 3, 1, 0),          # one step
+    ("wide", 97, 1024, 0),      # codes of up to 32 bits
+])
+def test_pack_blocks(kind, lanes, steps, offset, dev):
+    """The pack kernel against its serial plain version: emitted, acc and
+    nbits exact, words where emitted; blocks of 0, 1, all and a random
+    number of live bytes."""
     rng = np.random.default_rng(11)
-    if kind == "fib":  # 31-bit-deep code: long codes cross the word boundary
+    if kind == "wide":  # not a prefix code: the pack only lays codes end to end
+        blocks = rng.integers(0, 256, (lanes, steps)).astype(np.uint8)
+        lengths = rng.integers(1, 33, 256).astype(np.uint8)
+        lengths[:16] = 32
+        codes = np.array([rng.integers(0, 1 << int(n)) for n in lengths], np.int64)
+        codes, lengths = (torch.from_numpy(codes.astype(np.uint32)).to(dev),
+                          torch.from_numpy(lengths).to(dev))
+    elif kind == "fib":  # 31-bit-deep code: long codes cross the word boundary
         counts = np.zeros(32, np.int64)
         a, b = 1, 1
         for sym in range(32):
             counts[sym], a, b = a, b, a + b
         table_src = np.repeat(np.arange(32, dtype=np.uint8), counts).tobytes()
         blocks = rng.integers(0, 32, (lanes, steps)).astype(np.uint8)
+        codes, lengths = code_tensors_for(et.compress(table_src, backend="host"), dev)
     else:
-        table_src = _corpus(kind, lanes * steps)
+        src = _corpus(kind)
+        table_src = (src * -(-lanes * steps // len(src)))[: lanes * steps]
         blocks = np.frombuffer(table_src, np.uint8).reshape(lanes, steps).copy()
+        codes, lengths = code_tensors_for(et.compress(table_src, backend="host"), dev)
     valid = rng.integers(0, steps + 1, lanes).astype(np.int32)
     valid[0] = steps
-    blocks = torch.from_numpy(blocks).to(dev)
+    valid[1:3] = [0, 1][: lanes - 1]
+    flat = torch.zeros(offset + lanes * steps, dtype=torch.uint8, device=dev)
+    flat[offset:] = torch.from_numpy(blocks.reshape(-1)).to(dev)
+    blocks = flat[offset:].view(lanes, steps)
+    assert (blocks.data_ptr() % 16 == 0) is (offset == 0)
     valid = torch.from_numpy(valid).to(dev)
-    codes, lengths = code_tensors_for(et.compress(table_src, backend="host"), dev)
+    before = cuda_pack.pack_blocks.launches
     wk, ek, ak, nk = cuda_pack.pack_blocks(blocks, valid, codes, lengths)
     wp, ep, ap, np_ = cuda_pack.pack_blocks_plain(blocks, valid, codes, lengths)
+    torch.cuda.synchronize()
+    assert cuda_pack.pack_blocks.launches == before + 1
     assert torch.equal(ek, ep) and torch.equal(nk, np_)
     assert torch.equal(ak.view(torch.int32), ap.view(torch.int32))
     live_k = torch.where(ep, wk.view(torch.int32), 0)

@@ -1,4 +1,5 @@
-"""The port's block pack (plain version, CPU) against ``pack_blocks_scan`` and
+"""The port's block pack (plain version, CPU) and the pack kernel's
+decomposition (``pack_blocks_scan_plain``) against ``pack_blocks_scan`` and
 ``pack_blocks_pallas`` in interpret mode, and its bincount histogram against
 ``histogram_device``: exact equality, dense words compared where emitted."""
 
@@ -36,10 +37,11 @@ def _zipf_table(rng):
     return build_code_table(histogram(data))
 
 
-@pytest.mark.parametrize("kind", ["text", "zipf", "fib"])
-def test_pack_blocks_matches_jax(kind, midsummer):
+def _pack_inputs(kind, lanes, steps, midsummer):
+    """(blocks uint8[lanes, steps] zero past valid, valid, CodeTable): the
+    text corpus's bytes or a table's present symbols drawn at random, with
+    an empty, a full and a one-byte block first."""
     rng = np.random.default_rng(5)
-    lanes, steps = 16, 128
     if kind == "text":
         table = build_code_table(histogram(np.frombuffer(midsummer, np.uint8)))
         blocks = np.frombuffer(midsummer[: lanes * steps], np.uint8).reshape(lanes, steps)
@@ -50,11 +52,30 @@ def test_pack_blocks_matches_jax(kind, midsummer):
     valid = rng.integers(0, steps + 1, lanes).astype(np.int32)
     valid[:3] = [0, steps, 1]  # empty, full and one-byte blocks
     blocks = np.where(np.arange(steps)[None, :] < valid[:, None], blocks, 0).astype(np.uint8)
+    return blocks, valid, table
 
+
+def _jax_packs(blocks, valid, table):
+    """The JAX package's scan and its Pallas kernel (interpret mode)."""
     codetbl = jnp.asarray(code_table_cols(table.codes, table.lengths), jnp.bfloat16)
-    want_scan = pack_blocks_scan(jnp.asarray(blocks), jnp.asarray(valid), codetbl)
-    want_pallas = pack_blocks_pallas(jnp.asarray(blocks), jnp.asarray(valid), codetbl,
-                                     interpret=True)
+    return (pack_blocks_scan(jnp.asarray(blocks), jnp.asarray(valid), codetbl),
+            pack_blocks_pallas(jnp.asarray(blocks), jnp.asarray(valid), codetbl,
+                               interpret=True))
+
+
+def _assert_pack_equal(got, want):
+    """emitted, acc and nbits exact; words where emitted."""
+    words, emitted, acc, nbits = (np.asarray(x) for x in got)
+    w_words, w_emitted, w_acc, w_nbits = (np.asarray(x) for x in want)
+    assert np.array_equal(emitted, w_emitted)
+    assert np.array_equal(np.where(w_emitted, words, 0), np.where(w_emitted, w_words, 0))
+    assert np.array_equal(acc, w_acc)
+    assert np.array_equal(nbits, w_nbits)
+
+
+@pytest.mark.parametrize("kind", ["text", "zipf", "fib"])
+def test_pack_blocks_matches_jax(kind, midsummer):
+    blocks, valid, table = _pack_inputs(kind, 16, 128, midsummer)
     codes, lengths = code_tensors(table, "cpu")
     words, emitted, acc, nbits = cuda_pack.pack_blocks(
         torch.from_numpy(blocks), torch.from_numpy(valid), codes, lengths
@@ -62,13 +83,25 @@ def test_pack_blocks_matches_jax(kind, midsummer):
     assert (words.dtype, emitted.dtype, acc.dtype, nbits.dtype) == (
         torch.uint32, torch.bool, torch.uint32, torch.int32)
     assert emitted.numpy().any()
-    for want in (want_scan, want_pallas):
-        w_words, w_emitted, w_acc, w_nbits = (np.asarray(x) for x in want)
-        assert np.array_equal(emitted.numpy(), w_emitted)
-        assert np.array_equal(np.where(w_emitted, words.numpy(), 0),
-                              np.where(w_emitted, w_words, 0))
-        assert np.array_equal(acc.numpy(), w_acc)
-        assert np.array_equal(nbits.numpy(), w_nbits)
+    for want in _jax_packs(blocks, valid, table):
+        _assert_pack_equal((words, emitted, acc, nbits), want)
+
+
+@pytest.mark.parametrize("steps", [64, 256, 1024, 100])
+@pytest.mark.parametrize("kind", ["text", "zipf", "fib"])
+def test_pack_blocks_scan_plain_matches_jax(kind, steps, midsummer):
+    """The kernel's decomposition (prefix sums of the live code lengths,
+    stream words built with index_add) against the JAX scan, the Pallas
+    kernel in interpret mode and the port's serial plain version."""
+    blocks, valid, table = _pack_inputs(kind, 16, steps, midsummer)
+    codes, lengths = code_tensors(table, "cpu")
+    args = (torch.from_numpy(blocks), torch.from_numpy(valid), codes, lengths)
+    got = cuda_pack.pack_blocks_scan_plain(*args)
+    assert tuple(x.dtype for x in got) == (torch.uint32, torch.bool, torch.uint32, torch.int32)
+    assert tuple(got[0].shape) == tuple(got[1].shape) == (16, steps)
+    assert got[1].numpy().sum(1).max() >= steps // 8  # several words per block
+    for want in (*_jax_packs(blocks, valid, table), cuda_pack.pack_blocks_plain(*args)):
+        _assert_pack_equal(got, want)
 
 
 @pytest.mark.parametrize("size", [0, 1, 4095, 20000])
