@@ -554,7 +554,7 @@ def main(argv: list[str]) -> int:
         for name, data in cases:
             big = len(data) > 20 * MB
             if big and route != "host":
-                continue  # int32 rows of every byte: 100 MB runs through "host" only
+                continue  # untiled rows of every byte: 100 MB runs through "host" only
             blob = e2e_blobs[name]
             before = launch_counts()
             require(et.decompress(blob, backend="device", expand=route) == data,

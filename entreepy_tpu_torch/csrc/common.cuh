@@ -6,21 +6,6 @@
 
 namespace et {
 
-// Threads per block of the one-thread-per-lane kernels. Small blocks spread a body's lanes
-// over as many SMs as possible: the lanes' serial chains, not the thread count, bound them.
-constexpr int kLaneThreads = 64;
-
-// Copy an n-byte table from device memory into shared memory (16 B per thread-step; the
-// wrapper hands a 16-byte aligned source), then wait for the whole block.
-__device__ __forceinline__ void stage_table(uint8_t* dst, const uint8_t* __restrict__ src, int n) {
-  const int n16 = n >> 4;
-  const uint4* s4 = reinterpret_cast<const uint4*>(src);
-  uint4* d4 = reinterpret_cast<uint4*>(dst);
-  for (int i = threadIdx.x; i < n16; i += blockDim.x) d4[i] = s4[i];
-  for (int i = (n16 << 4) + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-  __syncthreads();
-}
-
 // Asynchronous global-to-shared copies (cp.async, sm_80+): a thread issues every copy of its
 // share without waiting, so a whole tile's loads are in flight at once and its latency is paid
 // once. `src_bytes` 0 fills the destination with zeros and reads nothing.
@@ -40,8 +25,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// stage_table with every 16-byte copy in flight at once (cp.async); the source and the
-// destination must be 16-byte aligned. Ends with the block's barrier.
+// Copy an n-byte table from device memory into shared memory with every 16-byte copy in flight
+// at once (cp.async); the source and the destination must be 16-byte aligned (the wrappers
+// check the source). Ends with the block's barrier.
 __device__ __forceinline__ void stage_table_async(uint8_t* dst, const uint8_t* __restrict__ src,
                                                   int n) {
   const int n16 = n >> 4;
@@ -53,6 +39,14 @@ __device__ __forceinline__ void stage_table_async(uint8_t* dst, const uint8_t* _
 
 inline int blocks_for(long long items, int threads) {
   return (int)((items + threads - 1) / threads);
+}
+
+// The current device's SM count.
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 }  // namespace et

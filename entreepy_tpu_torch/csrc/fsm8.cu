@@ -15,12 +15,9 @@
 // byte k's state is known. A pass therefore takes about K x (chain latency) once every lane has a
 // thread; device-memory traffic is small (1 B read per body byte; emit: 1 B written; fused: 4 B
 // written packed, 4(m+1) B unpacked). Every pass reads bytes from the [K, lanes] layout, so a
-// warp's loads at step k are one 32-byte sector. The emit pass:
-//   * stages the next_state table (S x 256 B, at most 64 KB) in shared memory once per block,
-//     raising the block's dynamic shared-memory cap above 48 KB where needed;
-//   * keeps blocks at 64 threads so a body's lanes spread over as many SMs as possible.
-// The sync and fused passes' own designs (bytes fetched ahead, lanes per block sized to the
-// card) are noted at their kernels below.
+// warp's loads at step k are one 32-byte sector. The sync and emit passes are one walk
+// (walk_kernel); its design and the fused pass's (bytes fetched ahead, lanes per block sized to
+// the card) are noted at the kernels below.
 //
 // Table layouts are those of format/fsm8.py (the JAX package's, copied), as uint8:
 //   next_state[S, 256]                       (ByteFsm.next_state)
@@ -41,75 +38,115 @@ __device__ __forceinline__ void load_ring(uint32_t (&ring)[R], const uint8_t* co
   for (int r = 0; r < R; ++r) ring[r] = k0 + r < k_len ? col[(size_t)(k0 + r) * lanes] : 0;
 }
 
-// ---- sync_pass: the suffix walk that guesses each chunk's entry state ----
+// ---- sync_pass and emit_pass: one state walk ----
 //
-// Replaces sync_pass_pallas8 (_sync8_kernel). Each lane walks the last w <= 128 bytes of its
-// chunk from the root, state = next_state[state][x], and returns the state it ends in. What
-// bounds it on this card is that chain (w dependent shared-memory loads) plus staging the table
-// and the launch; the bytes are a few MB at most. So:
+// walk_kernel<false> replaces sync_pass_pallas8 (_sync8_kernel): each lane walks the last
+// w <= 128 bytes of its chunk from the root, state = next_state[state][x], and returns the state
+// it ends in. walk_kernel<true> replaces emit_pass_pallas8 (_emit8_kernel): the same walk over
+// all K bytes of the chunk from the lane's entry state, storing each byte's state BEFORE its
+// transition. The TPU kernel packed four states per int32 word (its store economics); here
+// states is uint8[K, lanes] and a warp's stores at step k are 32 adjacent bytes.
+//
+// What bounds both on this card is the chain (w or K dependent shared-memory loads) plus staging
+// the table and the launch; the bytes are a few MB at most. A step is two dependent
+// instructions, IMAD (state * 256 + x) and LDS.U8; bank conflicts among a warp's loads barely
+// change its latency, and bank-partitioned copies of the table made the walk slower (PERF.md,
+// section 6). So:
 //   * no device load on the chain: a thread fetches its lane's bytes into register rings of
-//     kSyncRing bytes two rings before the chain reaches them, and the first two rings' loads
+//     kWalkRing bytes two rings before the chain reaches them, and the first two rings' loads
 //     are issued before the table is staged, so their latency hides behind the staging;
-//   * a ring's steps have a compile-time count, so its unrolled steps are one basic block; the
-//     last, partial ring (w need not be a multiple of a ring) is guarded step by step;
+//   * (emit) three rings rotate through the roles walked, in flight and refilled, never copied:
+//     a copy from ring to ring reads, and so waits for, the ring fetched ahead at the end of the
+//     ring that fetched it. The sync pass keeps the two rings and the copy: over its 128-byte
+//     window the rotation was slower at a few thousand lanes (though faster at a 65,536-lane
+//     tile);
+//   * (emit) no store on the chain either: a step stores the state it starts from with a
+//     streaming store (st.global.cs) before its lookup; nothing waits for the store, and the
+//     states are read by the next kernel, not by this one;
+//   * a ring's steps have a compile-time count, so its unrolled steps are one basic block; only
+//     the last, partial ring (K need not be a multiple of a ring) is guarded step by step;
 //   * the table (S x 256 B, at most 64 KB) is staged with cp.async, every copy in flight at once;
-//   * lanes per block: the fewest that still put one block on each SM (at most kSyncMaxLanes),
+//   * lanes per block: the fewest that still put one block on each SM (at most kWalkMaxLanes),
 //     so a body of a few thousand lanes spreads over every SM and a 65,536-lane tile stages the
 //     table once per 512 lanes, not once per 64. A block has at least kStageThreads threads
 //     for the staging; the rest return after it.
-constexpr int kSyncRing = 16;
-constexpr int kSyncMaxLanes = 512;  // walking threads per block (3 rings of 16 in registers)
+constexpr int kWalkRing = 16;
+constexpr int kWalkMaxLanes = 512;  // walking threads per block (3 rings of 16 in registers)
 constexpr int kStageThreads = 256;  // threads per block at least, for staging a table
 
-__global__ void __launch_bounds__(kSyncMaxLanes)
-    sync_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ next_state,
-                int n_states, const int32_t* __restrict__ entries, int32_t* __restrict__ exits,
-                int w, int lanes, int block_lanes) {
+// One ring of a lane's emit walk, bytes [k0, k0 + R): first issue the loads of ring k0 + 2R
+// into `ahead` (the ring walked last), then walk `ring`; each step stores the state it starts
+// from, then advances. GUARD masks steps at or past k_len.
+template <bool GUARD, int R = kWalkRing>
+__device__ __forceinline__ void emit_ring(const uint8_t* tbl, int& state, const uint32_t (&ring)[R],
+                                          uint32_t (&ahead)[R], const uint8_t* col,
+                                          uint8_t* __restrict__ out, int k0, int k_len,
+                                          int lanes) {
+  load_ring(ahead, col, k0 + 2 * R, k_len, lanes);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (!GUARD || k0 + r < k_len) {
+      __stcs(out + (size_t)(k0 + r) * lanes, (uint8_t)state);
+      state = tbl[state * 256 + ring[r]];
+    }
+  }
+}
+
+// EMIT: states is uint8[k_len, lanes]; otherwise it is not touched (the sync pass passes null).
+template <bool EMIT>
+__global__ void __launch_bounds__(kWalkMaxLanes)
+    walk_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ next_state,
+                int n_states, const int32_t* __restrict__ entries, uint8_t* __restrict__ states,
+                int32_t* __restrict__ exits, int k_len, int lanes, int block_lanes) {
   extern __shared__ __align__(16) uint8_t tbl[];
-  constexpr int R = kSyncRing;
+  constexpr int R = kWalkRing;
   const int lane = blockIdx.x * block_lanes + threadIdx.x;
   const bool walks = (int)threadIdx.x < block_lanes && lane < lanes;
   const uint8_t* col = xs + lane;
-  uint32_t xa[R], xb[R];  // the ring being walked and the next one
+  uint8_t* out = EMIT ? states + lane : nullptr;
+  uint32_t ra[R], rb[R];  // the ring walked next and the one after it
   int state = 0;
   if (walks) {
     state = entries[lane];
-    load_ring(xa, col, 0, w, lanes);
-    load_ring(xb, col, R, w, lanes);
+    load_ring(ra, col, 0, k_len, lanes);
+    load_ring(rb, col, R, k_len, lanes);
   }
   et::stage_table_async(tbl, next_state, n_states * 256);
   if (!walks) return;
   int k0 = 0;
-  for (; k0 + R <= w; k0 += R) {
-    uint32_t ahead[R];
-    load_ring(ahead, col, k0 + 2 * R, w, lanes);
+  if constexpr (EMIT) {
+    uint32_t rc[R];
+    for (; k0 + 3 * R <= k_len; k0 += 3 * R) {
+      emit_ring<false>(tbl, state, ra, rc, col, out, k0, k_len, lanes);
+      emit_ring<false>(tbl, state, rb, ra, col, out, k0 + R, k_len, lanes);
+      emit_ring<false>(tbl, state, rc, rb, col, out, k0 + 2 * R, k_len, lanes);
+    }
+    // the last (fewer than 3R) bytes: whole rings unguarded, then the partial one guarded
+    // (each ring's code once: a tail with one more unrolled ring made the walk slower)
+    if (k0 + R <= k_len) {
+      emit_ring<false>(tbl, state, ra, rc, col, out, k0, k_len, lanes);
+      k0 += R;
+      if (k0 + R <= k_len) {
+        emit_ring<false>(tbl, state, rb, ra, col, out, k0, k_len, lanes);
+        if (k0 + R < k_len) emit_ring<true>(tbl, state, rc, rb, col, out, k0 + R, k_len, lanes);
+      } else {
+        emit_ring<true>(tbl, state, rb, ra, col, out, k0, k_len, lanes);
+      }
+    } else {
+      emit_ring<true>(tbl, state, ra, rc, col, out, k0, k_len, lanes);
+    }
+  } else {
+    for (; k0 + R <= k_len; k0 += R) {
+      uint32_t ahead[R];
+      load_ring(ahead, col, k0 + 2 * R, k_len, lanes);
 #pragma unroll
-    for (int r = 0; r < R; ++r) state = tbl[state * 256 + xa[r]];
+      for (int r = 0; r < R; ++r) state = tbl[state * 256 + ra[r]];
 #pragma unroll
-    for (int r = 0; r < R; ++r) xa[r] = xb[r], xb[r] = ahead[r];
-  }
+      for (int r = 0; r < R; ++r) ra[r] = rb[r], rb[r] = ahead[r];
+    }
 #pragma unroll
-  for (int r = 0; r < R; ++r)
-    if (k0 + r < w) state = tbl[state * 256 + xa[r]];
-  exits[lane] = state;
-}
-
-// The sync walk over all K bytes, storing each byte's state BEFORE its transition. The TPU
-// kernel packed four states per int32 word (its store economics); here states is uint8[K, lanes]
-// and a warp's stores at step k are 32 adjacent bytes.
-__global__ void emit_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ next_state,
-                            int n_states, const int32_t* __restrict__ entries,
-                            uint8_t* __restrict__ states, int32_t* __restrict__ exits, int k_len,
-                            int lanes) {
-  extern __shared__ __align__(16) uint8_t tbl[];
-  et::stage_table(tbl, next_state, n_states * 256);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  int state = entries[lane];
-  for (int k = 0; k < k_len; ++k) {
-    const size_t o = (size_t)k * lanes + lane;
-    states[o] = (uint8_t)state;
-    state = tbl[state * 256 + xs[o]];
+    for (int r = 0; r < R; ++r)
+      if (k0 + r < k_len) state = tbl[state * 256 + ra[r]];
   }
   exits[lane] = state;
 }
@@ -271,48 +308,40 @@ __global__ void __launch_bounds__(kFusedMaxLanes)
   exits[lane] = state;
 }
 
+template <bool EMIT>
+int launch_walk(const void* xs, const void* next_state, int n_states, const void* entries,
+                void* states, void* exits, int k_len, int lanes, void* stream) {
+  const int smem = n_states * 256;
+  cudaError_t err =
+      cudaFuncSetAttribute(walk_kernel<EMIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int sms = 0;
+  if ((err = et::sm_count(&sms)) != cudaSuccess) return (int)err;
+  // the fewest walking lanes per block (a multiple of a warp) that put one block on each SM
+  const int block_lanes = std::min(
+      kWalkMaxLanes, std::max(32, (et::blocks_for(lanes, std::max(sms, 1)) + 31) / 32 * 32));
+  const int threads = std::max(block_lanes, kStageThreads);
+  walk_kernel<EMIT><<<et::blocks_for(lanes, block_lanes), threads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)xs, (const uint8_t*)next_state, n_states, (const int32_t*)entries,
+      (uint8_t*)states, (int32_t*)exits, k_len, lanes, block_lanes);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* et_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-static cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-}
-
 int et_sync_pass(const void* xs, const void* next_state, int n_states, const void* entries,
                  void* exits, int w, int lanes, void* stream) {
-  const int smem = n_states * 256;
-  cudaError_t err =
-      cudaFuncSetAttribute(sync_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int sms = 0;
-  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
-  // the fewest walking lanes per block (a multiple of a warp) that put one block on each SM
-  const int block_lanes = std::min(
-      kSyncMaxLanes, std::max(32, (et::blocks_for(lanes, std::max(sms, 1)) + 31) / 32 * 32));
-  const int threads = std::max(block_lanes, kStageThreads);
-  sync_kernel<<<et::blocks_for(lanes, block_lanes), threads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)xs, (const uint8_t*)next_state, n_states, (const int32_t*)entries,
-      (int32_t*)exits, w, lanes, block_lanes);
-  return (int)cudaGetLastError();
+  return launch_walk<false>(xs, next_state, n_states, entries, nullptr, exits, w, lanes, stream);
 }
 
 int et_emit_pass(const void* xs, const void* next_state, int n_states, const void* entries,
                  void* states, void* exits, int k_len, int lanes, void* stream) {
-  const int smem = n_states * 256;
-  cudaError_t err =
-      cudaFuncSetAttribute(emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  emit_kernel<<<et::blocks_for(lanes, et::kLaneThreads), et::kLaneThreads, smem,
-                (cudaStream_t)stream>>>(
-      (const uint8_t*)xs, (const uint8_t*)next_state, n_states, (const int32_t*)entries,
-      (uint8_t*)states, (int32_t*)exits, k_len, lanes);
-  return (int)cudaGetLastError();
+  return launch_walk<true>(xs, next_state, n_states, entries, states, exits, k_len, lanes,
+                           stream);
 }
 
 int et_fused_pass(const void* xs, const void* fused, int cols, const void* entries, void* out,
@@ -332,7 +361,7 @@ int et_fused_pass(const void* xs, const void* fused, int cols, const void* entri
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int sms = 0, per_sm = 0;
-  if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
+  if ((err = et::sm_count(&sms)) != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kStageThreads, smem);
   if (err != cudaSuccess) return (int)err;
   // the fewest walking lanes per block (a multiple of a warp) that still fit every lane in one

@@ -39,7 +39,8 @@ def _emit_fn():
 
 @functools.cache
 def _expand_split_fn():
-    return _build.entry("et_expand_split_pass", [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P])
+    return _build.entry("et_expand_split_pass",
+                        [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P])
 
 
 @functools.cache
@@ -146,8 +147,9 @@ def expand_pass_split_plain(xs: torch.Tensor, states: torch.Tensor,
     """Split-table expansion (the combine rule of
     ``pallas_fsm8._expand_split_kernel``): xs uint8[K, lanes], states
     [K, lanes] each byte's pre-transition state, t_split uint8[256,
-    2S+9(mt+1)] -> int32[K, m+1, lanes]: row 0 = count | 16*invalid, rows
-    1.. = symbol slots. Dead slots hold table values."""
+    2S+9(mt+1)] -> uint8[K, m+1, lanes]: row 0 = count | 16*invalid, rows
+    1.. = symbol slots. Dead slots hold table values. The values are the
+    TPU kernel's int32 rows; every one is below 256."""
     cols = t_split.shape[1]
     s = _split_width(t_split, mt)
     tbl = t_split.reshape(-1).long()
@@ -160,7 +162,7 @@ def expand_pass_split_plain(xs: torch.Tensor, states: torch.Tensor,
     inv = (pv >= 16) | (tc >= 16)
     row0 = torch.where(inv, 16, (p > 0).long() + (tc & 15))
     tail = [tbl[base + 2 * s + N_P * (1 + j) + p] for j in range(min(mt, m - 1))]
-    return torch.stack([row0, fs, *tail], dim=1).int()
+    return torch.stack([row0, fs, *tail], dim=1).to(torch.uint8)
 
 
 def _require_expand(xs, states, table, name: str) -> None:
@@ -175,7 +177,9 @@ def _require_expand(xs, states, table, name: str) -> None:
 def expand_pass_split(xs: torch.Tensor, states: torch.Tensor, t_split: torch.Tensor,
                       m: int, mt: int) -> torch.Tensor:
     """Kernel 6 (replaces ``expand_pass_split_pallas8``); see
-    :func:`expand_pass_split_plain`."""
+    :func:`expand_pass_split_plain`. The kernel writes rows of ``lanes``
+    rounded up to 8 bytes (aligned 8-byte stores); the result is the
+    ``[K, m+1, lanes]`` view, contiguous when ``lanes`` is a multiple of 8."""
     if xs.device.type == "cpu":
         return expand_pass_split_plain(xs, states, t_split, m, mt)
     k, lanes = xs.shape
@@ -183,15 +187,16 @@ def expand_pass_split(xs: torch.Tensor, states: torch.Tensor, t_split: torch.Ten
     cols, s = t_split.shape[1], _split_width(t_split, mt)
     if s not in (128, 256) or cols != 2 * s + N_P * (mt + 1) or t_split.data_ptr() % 16:
         raise ValueError(f"expand_pass_split: bad split table {tuple(t_split.shape)}, mt={mt}")
-    out = torch.empty((k, m + 1, lanes), dtype=torch.int32, device=xs.device)
+    pitch = -(-lanes // 8) * 8
+    out = torch.empty((k, m + 1, pitch), dtype=torch.uint8, device=xs.device)
     with torch.cuda.device(xs.device):
         rc = _expand_split_fn()(
             xs.data_ptr(), states.data_ptr(), t_split.data_ptr(), cols, s, m, mt,
-            out.data_ptr(), k, lanes, torch.cuda.current_stream().cuda_stream,
+            out.data_ptr(), k, lanes, pitch, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "et_expand_split_pass")
     expand_pass_split.launches += 1
-    return out
+    return out[:, :, :lanes]
 
 
 expand_pass_split.launches = 0
@@ -202,7 +207,7 @@ def expand_pass_plain(xs: torch.Tensor, states: torch.Tensor, t_exp: torch.Tenso
     """Full-table expansion (``pallas_fsm8._expand_kernel``): xs uint8[K,
     lanes], states [K, lanes], t_exp uint8[256, (m+1)S] ->
     int32[K, m+1, lanes] with ``vals[k, j, lane] = t_exp[byte, j*S + state]``
-    (the rows of :func:`expand_pass_split_plain`)."""
+    (the values of :func:`expand_pass_split_plain`'s rows)."""
     s = t_exp.shape[1] // (m + 1)
     tbl = t_exp.reshape(-1).long()
     idx = xs.long() * t_exp.shape[1] + states.long()

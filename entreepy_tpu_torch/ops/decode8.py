@@ -166,10 +166,11 @@ def compact_symbols_dense(words: torch.Tensor, m: int):
 
 def _expand_mask(raw: torch.Tensor, syms: torch.Tensor, n_valid: int):
     """Unpacked rows: apply the real-byte mask (lane-linear position <
-    ``n_valid``) and split count | 16*invalid -> (counts int32, inv bool,
-    syms)."""
+    ``n_valid``) and split count | 16*invalid (row 0, int32 or uint8) ->
+    (counts int32, inv bool, syms)."""
     k, lanes = raw.shape
     dev = raw.device
+    raw = raw.int()
     pos = (torch.arange(lanes, device=dev)[None, :] * k
            + torch.arange(k, device=dev)[:, None])
     real = pos < n_valid
@@ -182,7 +183,9 @@ def run_expand(xs: torch.Tensor, states: torch.Tensor, tables: ExpandTables,
     ``expand_pass_split`` and ``expand_pass_device``): xs/states
     uint8[K, lanes] through the split table, or the full one when
     ``tables.mt`` is None -> (counts int32[K, lanes], inv bool[K, lanes],
-    syms uint8[K, m, lanes]), masked to lane-linear positions < ``n_valid``."""
+    syms uint8[K, m, lanes]), masked to lane-linear positions < ``n_valid``.
+    The split expansion's rows are uint8, so its slots are a view; the full
+    table's are int32 (cast here)."""
     if tables.mt is None:
         vals = cuda_fsm8.expand_pass(xs, states, tables.table, tables.m)
     else:
@@ -243,7 +246,8 @@ def compact_symbols_device(counts: torch.Tensor, inv: torch.Tensor,
                         NO_INVALID).amin((0, 1))
 
     live = torch.arange(m, device=dev)[None, :, None] < counts[:, None, :]
-    plane, _ = compact_rows(syms.reshape(k * m, lanes).to(torch.int32),
+    # one contiguous int32 copy, also of a strided view of the split rows' slots
+    plane, _ = compact_rows(syms.to(torch.int32).reshape(k * m, lanes),
                             live.reshape(k * m, lanes), sg, cap_sym)
     # an under-sized cap would silently truncate a subgroup: reject loudly
     lane_tot = torch.where(mini_tot.max() > cap_sym, -1, lane_tot)

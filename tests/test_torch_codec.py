@@ -296,6 +296,23 @@ def test_h2d_calibration_deadline(monkeypatch):
     assert tapi._h2d_fast() is True
 
 
+@pytest.mark.parametrize("stalls,want", [((1.0, 1e-4, 1e-4), True), ((1e-4, 1.0, 1.0), True),
+                                         ((1.0, 1.0, 1.0), False)])
+def test_h2d_probe_takes_fastest_copy(stalls, want, monkeypatch):
+    """The probe times three 1 MiB copies and judges the link by the
+    fastest: one stalled copy (100 ms or more) does not route auto to the
+    host; three do."""
+    import time
+
+    from entreepy_tpu_torch import api as tapi
+
+    clock = iter(t for d in stalls for t in (0.0, d))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.Tensor, "to", lambda self, *a, **k: self)
+    monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
+    assert tapi._h2d_probe() is want
+
+
 def test_auto_without_cuda_routes_host(monkeypatch):
     """No CUDA device: the probe says slow and auto never picks the device
     backend, at any size; an explicit backend="device" still raises."""

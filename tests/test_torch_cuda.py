@@ -120,33 +120,45 @@ def test_fused_pass(kind, chunk, packed, dev):
     assert torch.equal(torch.where(live, sk, 0), torch.where(live, sp, 0))
 
 
-def _widest_tables(dev):
-    """The widest one-pass table: s = 256 live states and m = 8 symbols per
-    byte (a 1-bit code beside 255 longer ones), 151,808 B fused + 65,536 B
-    chain table in shared memory."""
+def _widest_fsm():
+    """The byte FSM of a 1-bit code beside 255 longer ones: 256 live states
+    and m = 8 symbols per byte."""
     from entreepy_tpu_torch.format import build_code_table
     from entreepy_tpu_torch.format.fsm8 import build_byte_fsm
-    from entreepy_tpu_torch.tables import decode_tables
 
     counts = np.arange(1, 257, dtype=np.int64)
     counts[0] = 1 << 40
-    t = decode_tables(build_byte_fsm(build_code_table(counts)), dev)
-    assert (t.s, t.m, t.mt, t.fused.shape[1]) == (256, 8, 7, 593)
-    return t
+    return build_byte_fsm(build_code_table(counts))
 
 
-def _pruned_tables(dev):
-    """The text corpus's one-pass tables with two codes removed: their bits
-    walk dead trie edges, so random bytes hit invalid transitions."""
+def _pruned_fsm():
+    """The text corpus's byte FSM with two codes removed: their bits walk
+    dead trie edges, so random bytes hit invalid transitions."""
     from entreepy_tpu_torch.format.fsm8 import build_byte_fsm
     from entreepy_tpu_torch.format.huffman import CodeTable
-    from entreepy_tpu_torch.tables import decode_tables
 
     table = body_for(et.compress(_corpus("text"), backend="host"))[0]
     lengths, codes = table.lengths.copy(), table.codes.copy()
     for sym in b"eq":
         lengths[sym] = codes[sym] = 0
-    return decode_tables(build_byte_fsm(CodeTable(codes, lengths)), dev)
+    return build_byte_fsm(CodeTable(codes, lengths))
+
+
+def _widest_tables(dev):
+    """The widest one-pass table: s = 256 live states and m = 8 symbols per
+    byte, 151,808 B fused + 65,536 B chain table in shared memory."""
+    from entreepy_tpu_torch.tables import decode_tables
+
+    t = decode_tables(_widest_fsm(), dev)
+    assert (t.s, t.m, t.mt, t.fused.shape[1]) == (256, 8, 7, 593)
+    return t
+
+
+def _pruned_tables(dev):
+    """The one-pass tables of :func:`_pruned_fsm`."""
+    from entreepy_tpu_torch.tables import decode_tables
+
+    return decode_tables(_pruned_fsm(), dev)
 
 
 @pytest.mark.parametrize("kind,lanes,k", [
@@ -204,6 +216,28 @@ def test_emit_pass(kind, chunk, dev):
     assert torch.equal(sk, sp) and torch.equal(xk, xp)
 
 
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("lanes", [1, 31, 33, 65, 5958, 65536])
+@pytest.mark.parametrize("k", [1, 3, 15, 16, 17, 33, 128, 512])
+def test_emit_pass_shapes(k, lanes, s, dev):
+    """The emit walk at chunk lengths below, on and off its 16-byte ring,
+    one lane, part warps, the 5.2 MB text body's lane count and a
+    65,536-lane tile, with a 128- and a 256-state table, on random bytes
+    and entry states below S: every state and exit exact."""
+    t = _body("text" if s == 128 else "skewed", 512, dev)[1]
+    assert t.next_state.shape == (s, 256)
+    rng = np.random.default_rng(k * lanes + s)
+    xs = torch.from_numpy(rng.integers(0, 256, (k, lanes), dtype=np.uint8)).to(dev)
+    entries = torch.from_numpy(rng.integers(0, s, lanes).astype(np.int32)).to(dev)
+    before = cuda_fsm8.emit_pass.launches
+    sk, xk = cuda_fsm8.emit_pass(xs, t.next_state, entries)
+    sp, xp = cuda_fsm8.emit_pass_plain(xs, t.next_state, entries)
+    torch.cuda.synchronize()
+    assert cuda_fsm8.emit_pass.launches == before + 1
+    assert sk.dtype == torch.uint8 and sk.shape == (k, lanes)
+    assert torch.equal(sk, sp) and torch.equal(xk, xp)
+
+
 def _expand_check(vk, vp, m):
     """Rows of an expansion kernel and its plain version: row 0 exact, symbol
     slots where live."""
@@ -236,6 +270,46 @@ def test_expand_pass_split(kind, m, dev):
     torch.cuda.synchronize()
     assert cuda_fsm8.expand_pass_split.launches == before + 1
     _expand_check(vk, vp, m)
+
+
+def _split_tables(kind, dev):
+    """Split expand tables: a corpus's, the widest (m = 8, 256 x 584 B =
+    146 KB of shared memory) or the pruned text table's."""
+    from entreepy_tpu_torch.tables import expand_tables
+
+    fsm = {"widest": _widest_fsm, "pruned": _pruned_fsm}.get(kind)
+    if fsm is not None:
+        return expand_tables(fsm(), dev, split=True)
+    return expand_tables_for(et.compress(_corpus(kind), backend="host"), dev, True)[0]
+
+
+@pytest.mark.parametrize("kind,m", [("random", 1), ("text", 3), ("skewed", 4), ("widest", 8),
+                                    ("pruned", 3)])
+@pytest.mark.parametrize("lanes", [1, 33, 64, 5958])
+@pytest.mark.parametrize("k", [1, 17, 512])
+def test_expand_pass_split_shapes(k, lanes, kind, m, dev):
+    """The split kernel's uint8 rows at one and a few rows (a warp's share
+    crossing rows), one lane, part groups of 8 lanes, a multiple of 8 (no
+    row padding) and the 5.2 MB text body's lane count (not a multiple of
+    4), m from 1 to 8, the 146 KB table and a pruned table whose random
+    bytes hit invalid transitions: row 0 exact, symbol slots where live."""
+    t = _split_tables(kind, dev)
+    assert t.m == m and t.table.shape == (256, 2 * t.s + 9 * (t.mt + 1))
+    if kind == "widest":
+        assert t.table.numel() == 256 * 584
+    rng = np.random.default_rng(k * lanes + m)
+    xs = torch.from_numpy(rng.integers(0, 256, (k, lanes), dtype=np.uint8)).to(dev)
+    states = torch.from_numpy(rng.integers(0, t.s, (k, lanes)).astype(np.uint8)).to(dev)
+    before = cuda_fsm8.expand_pass_split.launches
+    vk = cuda_fsm8.expand_pass_split(xs, states, t.table, t.m, t.mt)
+    vp = cuda_fsm8.expand_pass_split_plain(xs, states, t.table, t.m, t.mt)
+    torch.cuda.synchronize()
+    assert cuda_fsm8.expand_pass_split.launches == before + 1
+    assert vk.dtype == vp.dtype == torch.uint8
+    assert vk.is_contiguous() is (lanes % 8 == 0)
+    _expand_check(vk, vp, m)
+    if kind == "pruned" and k * lanes >= 512:
+        assert bool((vp[:, 0] >= 16).any())
 
 
 @pytest.mark.parametrize("kind,table_bytes", [("skewed", 320 * 1024), ("runheavy", 576 * 1024),

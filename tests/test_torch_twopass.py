@@ -171,6 +171,29 @@ def test_expand_pass_split_matches_jax(name, m, request):
 
 
 @pytest.mark.parametrize("name,m", [("alphabet", 1), ("macbeth", 3), ("skewed_str", 8)])
+def test_expand_pass_split_rows_match_pallas(name, m, request):
+    """The plain split expansion's uint8 rows hold the Pallas kernel's int32
+    values: row 0 (count | 16*invalid) exact, symbol slots where live."""
+    cols, states, fsm, _ = _expansion_inputs(name, request)
+    ts, m_, mt = split_expand_tensors(fsm)
+    assert m_ == m
+    want = np.asarray(expand_pass_split_pallas8(
+        jnp.asarray(cols.T, jnp.int32), jnp.asarray(states.T, jnp.int32),
+        jnp.asarray(ts, jnp.bfloat16), m, mt, interpret=True))
+    got = cuda_fsm8.expand_pass_split_plain(
+        torch.from_numpy(np.ascontiguousarray(cols.T)),
+        torch.from_numpy(np.ascontiguousarray(states.T)),
+        torch.from_numpy(ts.astype(np.uint8)), m, mt)
+    assert got.dtype == torch.uint8 and got.shape == want.shape == (cols.shape[1], m + 1,
+                                                                    cols.shape[0])
+    got = got.numpy().astype(np.int32)
+    assert np.array_equal(got[:, 0], want[:, 0])
+    live = np.arange(m)[None, :, None] < (want[:, 0] & 15)[:, None, :]
+    assert live.any()
+    assert np.array_equal(np.where(live, got[:, 1:], 0), np.where(live, want[:, 1:], 0))
+
+
+@pytest.mark.parametrize("name,m", [("alphabet", 1), ("macbeth", 3), ("skewed_str", 8)])
 def test_expand_pass_matches_jax(name, m, request):
     cols, states, fsm, n_valid = _expansion_inputs(name, request)
     t_exp, m_ = expand_tensors(fsm)

@@ -9,8 +9,9 @@ Each NAME=ROOT names the root of a checkout (for a parent commit:
 ``--order`` (default for two checkouts: first, second, second, first; for
 more: each once, as given) runs in a process of its own, because every
 package is named ``entreepy_tpu_torch``. The process
-builds that checkout's kernels and times its ``sync_pass``, ``fused_pass``,
-``pack_blocks`` and ``compact_rows`` at the shapes of the main path, on
+builds that checkout's kernels and times all seven, ``sync_pass``,
+``fused_pass``, ``emit_pass``, ``expand_pass_split``, ``expand_pass``,
+``pack_blocks`` and ``compact_rows``, at the shapes of the main path, on
 inputs made the same way in every turn:
 
 * sync_pass: the suffix window (128 B) of the 5.2 MB text body (5,958
@@ -19,12 +20,19 @@ inputs made the same way in every turn:
 * fused_pass, packed: the 5.2 MB text body (5,958 lanes) and a 65,536-lane
   tile of the 100 MB text body; unpacked: the 5 MB skewed body (m = 4) and
   the 5 MB run-heavy body (m = 8);
+* emit_pass: the 5.2 MB text body and the 5 MB run-heavy body (1,727
+  lanes, S = 256), from the suffix sync's guess, as the two-pass routes'
+  first pass;
+* expand_pass_split and expand_pass: the same two bodies, from the states
+  of the checkout's own two-pass fixed point (``decode8.fsm8_decode``);
 * pack_blocks: the 5.2 MB text in 1 KiB blocks (5,079) and one 32 MiB
   encode tile of the 100 MB text (32,768 blocks), each with its corpus's
   code table;
 * compact_rows: the encode plane of the 5.2 MB text (1 KiB blocks), the
   one-pass decode's m > 3 rows of the skewed body, the two-pass rows of the
-  text body (split table) and of the run-heavy body (full table).
+  text body (split table) and of the run-heavy body (full table), from the
+  checkout's own ``decode8.run_expand`` (whose rows a checkout may keep in
+  int32 or uint8).
 
 Fused entry states are the converged ones of the checkout's own
 fixed-point loop. ``--only`` times the named kernels alone.
@@ -214,6 +222,52 @@ def _worker(root: Path, only: set[str]) -> dict:
             "bound_ms": bound_ms(xs, tables.fused, entries, vk, xk),
             "max_abs_err": e, "shape": f"{lanes} lanes x {xs.shape[0]} B, m={m} s={s}"}
 
+    def emit(label: str, blob: bytes):
+        if not wanted("emit_pass"):
+            return
+        tables, _buf, xs, lanes = body(blob, None)
+        w = min(decode8.SYNC_WINDOW, xs.shape[0])
+        zeros = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        guess = cuda_fsm8.sync_pass(xs[-w:], tables.next_state, zeros)
+        entries = torch.cat([zeros[:1], guess[:-1]])
+        sk, xk = cuda_fsm8.emit_pass(xs, tables.next_state, entries)
+        sp, xp = cuda_fsm8.emit_pass_plain(xs, tables.next_state, entries)
+        out[f"emit_pass {label}"] = {
+            "ms": kernel_ms(lambda: cuda_fsm8.emit_pass(xs, tables.next_state, entries)),
+            "bound_ms": bound_ms(xs, tables.next_state, entries, sk, xk),
+            "max_abs_err": max(max_err(sk, sp), max_err(xk, xp)),
+            "shape": f"{lanes} lanes x {xs.shape[0]} B, S={tables.next_state.shape[0]}"}
+
+    def two_pass_inputs(blob: bytes, split: bool):
+        """A body's expand tables, xs [K, lanes] and converged states."""
+        tables, buf = expand_tables_for(blob, dev, split)
+        xs, lanes = body_xs(buf)
+        states, unconverged = decode8.fsm8_decode(xs, tables.next_state, lanes)
+        assert not unconverged
+        return tables, buf, xs, states
+
+    def expand(label: str, blob: bytes, split: bool):
+        name = "expand_pass_split" if split else "expand_pass"
+        if not wanted(name):
+            return
+        tables, _buf, xs, states = two_pass_inputs(blob, split)
+        m = tables.m
+        if split:
+            args = (xs, states, tables.table, m, tables.mt)
+            fn, plain = cuda_fsm8.expand_pass_split, cuda_fsm8.expand_pass_split_plain
+        else:
+            args = (xs, states, tables.table, m)
+            fn, plain = cuda_fsm8.expand_pass, cuda_fsm8.expand_pass_plain
+        vk, vp = fn(*args), plain(*args)
+        j = torch.arange(m, device=dev)[None, :, None]
+        out[f"{name} {label}"] = {
+            "ms": kernel_ms(lambda: fn(*args)),
+            "bound_ms": bound_ms(xs, states, tables.table, vk),
+            "max_abs_err": max(max_err(vk[:, 0], vp[:, 0]),
+                               max_err(vk[:, 1:], vp[:, 1:], j < (vp[:, 0] & 15)[:, None, :])),
+            "shape": f"{xs.shape[1]} lanes x {xs.shape[0]} B, m={m} S={tables.s}, "
+                     f"table {tuple(tables.table.shape)}, {str(vk.dtype)[6:]} rows"}
+
     def compact(label: str, rows, live, sub: int, cap: int):
         ck = cuda_compact.compact_rows(rows, live, sub, cap)
         cp = cuda_compact.compact_rows_plain(rows, live, sub, cap)
@@ -225,18 +279,9 @@ def _worker(root: Path, only: set[str]) -> dict:
 
     def two_pass_rows(blob: bytes, split: bool):
         """The two-pass route's compaction operands of a body."""
-        tables, buf = expand_tables_for(blob, dev, split)
-        xs, lanes = body_xs(buf)
-        states, unconverged = decode8.fsm8_decode(xs, tables.next_state, lanes)
-        assert not unconverged
-        m = tables.m
-        if split:
-            vals = cuda_fsm8.expand_pass_split(xs, states, tables.table, m, tables.mt)
-        else:
-            vals = cuda_fsm8.expand_pass(xs, states, tables.table, m)
-        counts, _inv, syms = decode8._expand_mask(vals[:, 0], vals[:, 1:].to(torch.uint8),
-                                                  buf.size)
-        return rows_of(counts, syms, m)
+        tables, buf, xs, states = two_pass_inputs(blob, split)
+        counts, _inv, syms = decode8.run_expand(xs, states, tables, buf.size)
+        return rows_of(counts, syms, tables.m)
 
     def rows_of(counts, syms, m: int):
         k, lanes = counts.shape
@@ -272,6 +317,10 @@ def _worker(root: Path, only: set[str]) -> dict:
     fused("packed, 65,536-lane tile of text 100 MB", blobs["big"], 65536)
     fused("unpacked, skewed 5 MB", blobs["skewed"])
     fused("unpacked, runheavy 5 MB", blobs["runheavy"])
+    for kind, label in (("text", "text 5.2 MB"), ("runheavy", "runheavy 5 MB")):
+        emit(label, blobs[kind])
+        expand(label, blobs[kind], True)
+        expand(label, blobs[kind], False)
 
     words, emitted, _acc, _nbits = pack("text 5.2 MB", text, blobs["text"])
     pack("32 MiB encode tile of text 100 MB", big[: 32 << 20], blobs["big"])
@@ -299,7 +348,8 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--order", help="comma-separated names (default for two checkouts: "
                     "A,B,B,A; for more, each once)")
     ap.add_argument("--only", default="", help="comma-separated kernels to time "
-                    "(sync_pass, fused_pass, pack_blocks, compact_rows; default: all)")
+                    "(sync_pass, fused_pass, emit_pass, expand_pass_split, expand_pass, "
+                    "pack_blocks, compact_rows; default: all)")
     ap.add_argument("--out", help="also write the JSON summary here")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
