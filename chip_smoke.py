@@ -44,8 +44,9 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              of auto and of the host backend side by side;
 5. stages  — each corpus's compress and decompress split into the
              pipeline's stages (``entreepy_tpu_torch.trace.record_stages``:
-             host clock, the device synchronized at each stage's end), and
-             the two-pass routes' stages on 5.2 MB text;
+             host clock, the device synchronized at each stage's end; the
+             median and range of the calls), and the two-pass routes'
+             stages on 5.2 MB text;
    ENTREEPY_PROFILE=<dir> adds the port's profiler (trace.maybe_profile)
              over a warm 5.2 MB round trip, its traces written into <dir>:
              the device's self time and its busy share of the call.
@@ -263,7 +264,7 @@ def expand_check(blob: bytes, split: bool):
               bound_ms(xs, states, tables.table, vk), library)
 
     k = xs.shape[0]
-    counts, _inv, syms = decode8._expand_mask(vk[:, 0], vk[:, 1:].to(torch.uint8), buf.size)
+    counts, _inv, syms = decode8._expand_mask(vk[:, 0], vk[:, 1:], buf.size)
     sub, cap = decode8._sub_width(k) * m, decode8.sym_cap(counts, m)
     live = (j < counts[:, None, :]).reshape(k * m, lanes)
     compact = compact_check(syms.reshape(k * m, lanes).to(torch.int32), live, sub, cap)
@@ -345,15 +346,20 @@ def run_path(path: str, drive) -> dict:
 
 
 def stage_line(label: str, fn, iters: int, card: str) -> None:
-    """Median stage times of ``iters`` calls of ``fn`` (record_stages)."""
+    """Median stage times of ``iters`` calls of ``fn`` (record_stages), each
+    with its range over the calls."""
     runs = []
     for _ in range(iters):
         with trace.record_stages() as stages:
             fn()
         runs.append(stages)
-    print(f"[stages] {label}, ms (median of {iters}): "
-          + ", ".join(f"{k} {statistics.median(r[k] for r in runs):.3f}" for k in runs[0])
-          + f" | {card}")
+
+    def stage(k: str) -> str:
+        ms = [r[k] for r in runs]
+        return f"{k} {statistics.median(ms):.3f} ({min(ms):.3f}-{max(ms):.3f})"
+
+    print(f"[stages] {label}, ms (median of {iters}, range): "
+          + ", ".join(stage(k) for k in runs[0]) + f" | {card}")
 
 
 def _self_device_us(event) -> float:

@@ -45,7 +45,7 @@ def _expand_split_fn():
 
 @functools.cache
 def _expand_fn():
-    return _build.entry("et_expand_pass", [_P, _P, _P, _I, _I, _P, _I, _I, _P])
+    return _build.entry("et_expand_pass", [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P])
 
 
 @functools.cache
@@ -206,36 +206,56 @@ def expand_pass_plain(xs: torch.Tensor, states: torch.Tensor, t_exp: torch.Tenso
                       m: int) -> torch.Tensor:
     """Full-table expansion (``pallas_fsm8._expand_kernel``): xs uint8[K,
     lanes], states [K, lanes], t_exp uint8[256, (m+1)S] ->
-    int32[K, m+1, lanes] with ``vals[k, j, lane] = t_exp[byte, j*S + state]``
-    (the values of :func:`expand_pass_split_plain`'s rows)."""
+    uint8[K, m+1, lanes] with ``vals[k, j, lane] = t_exp[byte, j*S + state]``
+    (the values of :func:`expand_pass_split_plain`'s rows). The values are
+    the TPU kernel's int32 rows; every one is below 256."""
     s = t_exp.shape[1] // (m + 1)
-    tbl = t_exp.reshape(-1).long()
     idx = xs.long() * t_exp.shape[1] + states.long()
     j = torch.arange(m + 1, device=xs.device) * s
-    return tbl[idx[:, None, :] + j[None, :, None]].int()
+    return t_exp.reshape(-1)[idx[:, None, :] + j[None, :, None]]
+
+
+def expand_vector_table(t_exp: torch.Tensor, m: int) -> torch.Tensor:
+    """The full table as the expansion kernel reads it: uint8[256, S, P],
+    ``vec[x, st, j] = t_exp[x, j*S + st]`` for j <= m, P = m + 1 rounded up
+    to 4, 8 or 16, so a byte's values are one aligned vector load. The pad
+    bytes ``j > m`` are left unset: the kernel loads them with the entry but
+    writes no row from them. One copy on ``t_exp``'s device."""
+    m1 = m + 1
+    s = t_exp.shape[1] // m1
+    p = 4 if m1 <= 4 else 8 if m1 <= 8 else 16
+    vec = torch.empty((256, s, p), dtype=torch.uint8, device=t_exp.device)
+    vec[:, :, :m1] = t_exp.view(256, m1, s).transpose(1, 2)
+    return vec
 
 
 def expand_pass(xs: torch.Tensor, states: torch.Tensor, t_exp: torch.Tensor,
                 m: int) -> torch.Tensor:
     """Kernel 7 (replaces ``expand_pass_pallas8``); see
-    :func:`expand_pass_plain`. The table may exceed shared memory (576 KB at
-    S = 256, m = 8): the kernel reads it from device memory."""
+    :func:`expand_pass_plain`. The kernel reads :func:`expand_vector_table`,
+    built here from ``t_exp``: staged in shared memory where it fits a block
+    (128 KB at S = 128, m <= 3), else read through L2 (up to 1 MB at S = 256,
+    m = 8). It writes rows of ``lanes`` rounded up to 8 bytes (aligned
+    8-byte stores); the result is the ``[K, m+1, lanes]`` view, contiguous
+    when ``lanes`` is a multiple of 8."""
     if xs.device.type == "cpu":
         return expand_pass_plain(xs, states, t_exp, m)
     k, lanes = xs.shape
     _require_expand(xs, states, t_exp, "expand_pass")
     s = t_exp.shape[1] // (m + 1)
-    if s not in (128, 256) or t_exp.shape[1] != (m + 1) * s:
+    if not 1 <= m <= 8 or s not in (128, 256) or t_exp.shape[1] != (m + 1) * s:
         raise ValueError(f"expand_pass: bad expand table {tuple(t_exp.shape)}, m={m}")
-    out = torch.empty((k, m + 1, lanes), dtype=torch.int32, device=xs.device)
+    vec = expand_vector_table(t_exp, m)
+    pitch = -(-lanes // 8) * 8
+    out = torch.empty((k, m + 1, pitch), dtype=torch.uint8, device=xs.device)
     with torch.cuda.device(xs.device):
         rc = _expand_fn()(
-            xs.data_ptr(), states.data_ptr(), t_exp.data_ptr(), s, m, out.data_ptr(),
-            k, lanes, torch.cuda.current_stream().cuda_stream,
+            xs.data_ptr(), states.data_ptr(), vec.data_ptr(), s, m, out.data_ptr(),
+            k, lanes, pitch, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "et_expand_pass")
     expand_pass.launches += 1
-    return out
+    return out[:, :, :lanes]
 
 
 expand_pass.launches = 0

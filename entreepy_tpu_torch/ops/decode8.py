@@ -184,13 +184,12 @@ def run_expand(xs: torch.Tensor, states: torch.Tensor, tables: ExpandTables,
     uint8[K, lanes] through the split table, or the full one when
     ``tables.mt`` is None -> (counts int32[K, lanes], inv bool[K, lanes],
     syms uint8[K, m, lanes]), masked to lane-linear positions < ``n_valid``.
-    The split expansion's rows are uint8, so its slots are a view; the full
-    table's are int32 (cast here)."""
+    Both expansions return uint8 rows, so the slots are a view of them."""
     if tables.mt is None:
         vals = cuda_fsm8.expand_pass(xs, states, tables.table, tables.m)
     else:
         vals = cuda_fsm8.expand_pass_split(xs, states, tables.table, tables.m, tables.mt)
-    return _expand_mask(vals[:, 0], vals[:, 1:].to(torch.uint8), n_valid)
+    return _expand_mask(vals[:, 0], vals[:, 1:], n_valid)
 
 
 def _sub_width(k: int) -> int:
@@ -246,7 +245,7 @@ def compact_symbols_device(counts: torch.Tensor, inv: torch.Tensor,
                         NO_INVALID).amin((0, 1))
 
     live = torch.arange(m, device=dev)[None, :, None] < counts[:, None, :]
-    # one contiguous int32 copy, also of a strided view of the split rows' slots
+    # one contiguous int32 copy, also of a strided view of an expansion's rows' slots
     plane, _ = compact_rows(syms.to(torch.int32).reshape(k * m, lanes),
                             live.reshape(k * m, lanes), sg, cap_sym)
     # an under-sized cap would silently truncate a subgroup: reject loudly

@@ -323,7 +323,71 @@ def test_expand_pass(kind, table_bytes, dev):
     vp = cuda_fsm8.expand_pass_plain(xs, states, t.table, t.m)
     torch.cuda.synchronize()
     assert cuda_fsm8.expand_pass.launches == before + 1
+    assert vk.dtype == vp.dtype == torch.uint8
     _expand_check(vk, vp, t.m)
+
+
+def _full_tables(kind, dev):
+    """Full expand tables: a corpus's or the pruned text table's."""
+    from entreepy_tpu_torch.tables import expand_tables
+
+    if kind == "pruned":
+        return expand_tables(_pruned_fsm(), dev, split=False)
+    return expand_tables_for(et.compress(_corpus(kind), backend="host"), dev, False)[0]
+
+
+@pytest.mark.parametrize("kind,m,vector_bytes", [
+    ("text", 3, 128 * 1024),       # staged in shared memory
+    ("pruned", 3, 128 * 1024),     # staged; random bytes hit invalid transitions
+    ("random", 1, 256 * 1024),     # 4-byte entries through L2 (S = 256)
+    ("skewed", 4, 512 * 1024),     # 8-byte entries through L2
+    ("runheavy", 8, 1024 * 1024),  # 16-byte entries through L2
+])
+@pytest.mark.parametrize("lanes", [1, 7, 8, 9, 5958])
+@pytest.mark.parametrize("k", [1, 17, 512])
+def test_expand_pass_shapes(k, lanes, kind, m, vector_bytes, dev):
+    """The full-table kernel's uint8 rows at one and a few rows (a warp's
+    share crossing rows), one lane, part groups of 8 lanes, a multiple of 8
+    (no row padding) and the 5.2 MB text body's lane count, through each
+    table path (the vector table staged in shared memory, or read through
+    L2 with 4-, 8- and 16-byte entries), on random bytes and states below S:
+    every row value exact, dead slots included."""
+    t = _full_tables(kind, dev)
+    assert t.m == m and t.mt is None
+    assert cuda_fsm8.expand_vector_table(t.table, m).numel() == vector_bytes
+    rng = np.random.default_rng(k * lanes + m)
+    xs = torch.from_numpy(rng.integers(0, 256, (k, lanes), dtype=np.uint8)).to(dev)
+    states = torch.from_numpy(rng.integers(0, t.s, (k, lanes)).astype(np.uint8)).to(dev)
+    before = cuda_fsm8.expand_pass.launches
+    vk = cuda_fsm8.expand_pass(xs, states, t.table, m)
+    vp = cuda_fsm8.expand_pass_plain(xs, states, t.table, m)
+    torch.cuda.synchronize()
+    assert cuda_fsm8.expand_pass.launches == before + 1
+    assert vk.dtype == vp.dtype == torch.uint8 and vk.shape == (k, m + 1, lanes)
+    assert vk.is_contiguous() is (lanes % 8 == 0)
+    assert torch.equal(vk, vp)
+    if kind == "pruned" and k * lanes >= 512:
+        assert bool((vp[:, 0] >= 16).any())
+
+
+@pytest.mark.parametrize("lanes", [7, 5958])
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_expand_pass_every_m(m, s, lanes, dev):
+    """Every instantiation of the full-table kernel, one per (m, table path):
+    a random uint8[256, (m+1)S] table (the kernel and its plain version only
+    index it), random bytes and states below S; every row value exact."""
+    rng = np.random.default_rng(16 * m + s + lanes)
+    table = torch.from_numpy(rng.integers(0, 256, (256, (m + 1) * s), dtype=np.uint8)).to(dev)
+    xs = torch.from_numpy(rng.integers(0, 256, (33, lanes), dtype=np.uint8)).to(dev)
+    states = torch.from_numpy(rng.integers(0, s, (33, lanes)).astype(np.uint8)).to(dev)
+    before = cuda_fsm8.expand_pass.launches
+    vk = cuda_fsm8.expand_pass(xs, states, table, m)
+    vp = cuda_fsm8.expand_pass_plain(xs, states, table, m)
+    torch.cuda.synchronize()
+    assert cuda_fsm8.expand_pass.launches == before + 1
+    assert vk.dtype == torch.uint8 and vk.shape == (33, m + 1, lanes)
+    assert torch.equal(vk, vp)
 
 
 @pytest.mark.parametrize("expand", ["onepass", "split", "fused", "host"])
@@ -444,6 +508,11 @@ def test_wrappers_reject_bad_operands(dev):
         cuda_fsm8.expand_pass_split(xs, xs, split, 3, 1)
     with pytest.raises(ValueError):  # a full table is (m + 1) * S wide
         cuda_fsm8.expand_pass(xs, xs, split, 3)
+    full = torch.zeros((256, 10 * 128), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):  # m above 8: no kernel has ten rows
+        cuda_fsm8.expand_pass(xs, xs, full, 9)
+    with pytest.raises(ValueError):  # a full table of another dtype
+        cuda_fsm8.expand_pass(xs, xs, full[:, :512].int(), 3)
 
 
 @pytest.mark.parametrize("tile_lanes", [1, 7, 64])

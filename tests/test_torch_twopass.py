@@ -148,6 +148,17 @@ def _assert_masked_equal(got, want, m: int):
     assert np.array_equal(np.where(live, syms, 0), np.where(live, w_syms, 0))
 
 
+def _assert_rows_hold_pallas(got, want, m: int):
+    """uint8 rows [K, m+1, lanes] hold the Pallas kernel's int32 values: row
+    0 (count | 16*invalid) exact, symbol slots where live."""
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    got = got.numpy().astype(np.int32)
+    assert np.array_equal(got[:, 0], want[:, 0])
+    live = np.arange(m)[None, :, None] < (want[:, 0] & 15)[:, None, :]
+    assert live.any()
+    assert np.array_equal(np.where(live, got[:, 1:], 0), np.where(live, want[:, 1:], 0))
+
+
 @pytest.mark.parametrize("name,m", [("alphabet", 1), ("macbeth", 3), ("skewed_str", 8)])
 def test_expand_pass_split_matches_jax(name, m, request):
     cols, states, fsm, n_valid = _expansion_inputs(name, request)
@@ -184,13 +195,8 @@ def test_expand_pass_split_rows_match_pallas(name, m, request):
         torch.from_numpy(np.ascontiguousarray(cols.T)),
         torch.from_numpy(np.ascontiguousarray(states.T)),
         torch.from_numpy(ts.astype(np.uint8)), m, mt)
-    assert got.dtype == torch.uint8 and got.shape == want.shape == (cols.shape[1], m + 1,
-                                                                    cols.shape[0])
-    got = got.numpy().astype(np.int32)
-    assert np.array_equal(got[:, 0], want[:, 0])
-    live = np.arange(m)[None, :, None] < (want[:, 0] & 15)[:, None, :]
-    assert live.any()
-    assert np.array_equal(np.where(live, got[:, 1:], 0), np.where(live, want[:, 1:], 0))
+    assert want.shape == (cols.shape[1], m + 1, cols.shape[0])
+    _assert_rows_hold_pallas(got, want, m)
 
 
 @pytest.mark.parametrize("name,m", [("alphabet", 1), ("macbeth", 3), ("skewed_str", 8)])
@@ -209,8 +215,65 @@ def test_expand_pass_matches_jax(name, m, request):
     want_pallas = jd._expand_mask(vals[:, 0, :], vals[:, 1:, :].astype(jnp.uint8),
                                   jnp.int32(n_valid), m)
     got = _run_expand(cols, states, tables, n_valid)
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    assert got[2].dtype == torch.uint8
     _assert_masked_equal(got, want_scan, m)
     _assert_masked_equal(got, want_pallas, m)
+
+
+@pytest.mark.parametrize("name,m", [("alphabet", 1), ("macbeth", 3), ("skewed_str", 8)])
+def test_expand_pass_rows_match_pallas(name, m, request):
+    """The plain full-table expansion's uint8 rows hold the Pallas kernel's
+    int32 values: row 0 exact, symbol slots where live."""
+    cols, states, fsm, _ = _expansion_inputs(name, request)
+    t_exp, m_ = expand_tensors(fsm)
+    assert m_ == m
+    want = np.asarray(expand_pass_pallas8(
+        jnp.asarray(cols.T, jnp.int32), jnp.asarray(states.T, jnp.int32),
+        jnp.asarray(t_exp, jnp.bfloat16), m, interpret=True))
+    got = cuda_fsm8.expand_pass_plain(
+        torch.from_numpy(np.ascontiguousarray(cols.T)),
+        torch.from_numpy(np.ascontiguousarray(states.T)),
+        torch.from_numpy(t_exp.astype(np.uint8)), m)
+    assert want.shape == (cols.shape[1], m + 1, cols.shape[0])
+    _assert_rows_hold_pallas(got, want, m)
+
+
+@pytest.mark.parametrize("lanes", [1, 7, 9])
+def test_expand_pass_odd_lanes(lanes, macbeth):
+    """Lane counts off the kernel's groups of 8: the plain full-table
+    expansion's uint8 [K, m+1, lanes] rows hold the Pallas kernel's values
+    on random bytes and states below S."""
+    fsm = build_byte_fsm(parse_header(compress_host(macbeth)).table)
+    t_exp, m = expand_tensors(fsm)
+    rng = np.random.default_rng(lanes)
+    xs = rng.integers(0, 256, (16, lanes), dtype=np.uint8)
+    states = rng.integers(0, fsm.width, (16, lanes)).astype(np.uint8)
+    want = np.asarray(expand_pass_pallas8(
+        jnp.asarray(xs, jnp.int32), jnp.asarray(states, jnp.int32),
+        jnp.asarray(t_exp, jnp.bfloat16), m, interpret=True))
+    got = cuda_fsm8.expand_pass_plain(torch.from_numpy(xs), torch.from_numpy(states),
+                                      torch.from_numpy(t_exp.astype(np.uint8)), m)
+    assert got.shape == (16, m + 1, lanes)
+    _assert_rows_hold_pallas(got, want, m)
+
+
+@pytest.mark.parametrize("name,m,p", [("alphabet", 1, 4), ("macbeth", 3, 4), ("skewed", 4, 8),
+                                      ("skewed_str", 8, 16)])
+def test_expand_vector_table_entries(name, m, p, request):
+    """The kernel's relaid full table: entry (byte, state) is one aligned
+    P-byte vector holding the byte's m + 1 values in order, so a lookup at
+    ``(x*S + state) * P + j`` reads ``expand_tensors``' value of row j."""
+    fsm = build_byte_fsm(parse_header(compress_host(_data(name, request))).table)
+    t_exp, m_ = expand_tensors(fsm)
+    assert m_ == m
+    s = fsm.width
+    vec = cuda_fsm8.expand_vector_table(torch.from_numpy(t_exp.astype(np.uint8)), m)
+    assert vec.dtype == torch.uint8 and vec.shape == (256, s, p) and vec.is_contiguous()
+    flat = vec.reshape(-1).numpy()
+    x, st = np.meshgrid(np.arange(256), np.arange(s), indexing="ij")
+    for j in range(m + 1):
+        assert np.array_equal(flat[(x * s + st) * p + j], t_exp[:, j * s:(j + 1) * s])
 
 
 @pytest.fixture

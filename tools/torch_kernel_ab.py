@@ -23,8 +23,13 @@ inputs made the same way in every turn:
 * emit_pass: the 5.2 MB text body and the 5 MB run-heavy body (1,727
   lanes, S = 256), from the suffix sync's guess, as the two-pass routes'
   first pass;
-* expand_pass_split and expand_pass: the same two bodies, from the states
+* expand_pass_split and expand_pass: the same two bodies, and for
+  expand_pass also the 5 MB skewed body (m = 4, S = 256), from the states
   of the checkout's own two-pass fixed point (``decode8.fsm8_decode``);
+  the bound counts the table the function takes (``expand_tensors``'
+  layout); where the checkout relays it for its kernel
+  (``cuda_fsm8.expand_vector_table``, inside the timed call), the
+  relayout's own time is reported beside;
 * pack_blocks: the 5.2 MB text in 1 KiB blocks (5,079) and one 32 MiB
   encode tile of the 100 MB text (32,768 blocks), each with its corpus's
   code table;
@@ -252,21 +257,25 @@ def _worker(root: Path, only: set[str]) -> dict:
             return
         tables, _buf, xs, states = two_pass_inputs(blob, split)
         m = tables.m
+        relayout = None
         if split:
             args = (xs, states, tables.table, m, tables.mt)
             fn, plain = cuda_fsm8.expand_pass_split, cuda_fsm8.expand_pass_split_plain
         else:
             args = (xs, states, tables.table, m)
             fn, plain = cuda_fsm8.expand_pass, cuda_fsm8.expand_pass_plain
+            relayout = getattr(cuda_fsm8, "expand_vector_table", None)
         vk, vp = fn(*args), plain(*args)
         j = torch.arange(m, device=dev)[None, :, None]
-        out[f"{name} {label}"] = {
+        res = out[f"{name} {label}"] = {
             "ms": kernel_ms(lambda: fn(*args)),
             "bound_ms": bound_ms(xs, states, tables.table, vk),
             "max_abs_err": max(max_err(vk[:, 0], vp[:, 0]),
                                max_err(vk[:, 1:], vp[:, 1:], j < (vp[:, 0] & 15)[:, None, :])),
             "shape": f"{xs.shape[1]} lanes x {xs.shape[0]} B, m={m} S={tables.s}, "
                      f"table {tuple(tables.table.shape)}, {str(vk.dtype)[6:]} rows"}
+        if relayout is not None:
+            res["relayout_ms"] = kernel_ms(lambda: relayout(tables.table, m))
 
     def compact(label: str, rows, live, sub: int, cap: int):
         ck = cuda_compact.compact_rows(rows, live, sub, cap)
@@ -321,6 +330,7 @@ def _worker(root: Path, only: set[str]) -> dict:
         emit(label, blobs[kind])
         expand(label, blobs[kind], True)
         expand(label, blobs[kind], False)
+    expand("skewed 5 MB", blobs["skewed"], False)
 
     words, emitted, _acc, _nbits = pack("text 5.2 MB", text, blobs["text"])
     pack("32 MiB encode tile of text 100 MB", big[: 32 << 20], blobs["big"])
@@ -381,7 +391,9 @@ def main(argv: list[str]) -> int:
         for label, v in res.items():
             print(f"[ab] turn {i} {name}: {label} ({v['shape']}): {v['ms']:.4f} ms, bound "
                   f"{v['bound_ms']:.4f} ms ({v['bound_ms'] / v['ms']:.1%}), max_abs_err "
-                  f"{v['max_abs_err']} | {card}")
+                  f"{v['max_abs_err']}"
+                  + (f", of it the table relayout alone {v['relayout_ms']:.4f} ms"
+                     if "relayout_ms" in v else "") + f" | {card}")
     print(card)
     summary = {"card": card, "order": order, "turns": turns}
     if args.out:
