@@ -38,10 +38,19 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              routing (backend=None: the host-to-device probe must say fast,
              host at 5.2 MB, the device at 100 MB); the CLI in process
              (``entreepy_tpu_torch.cli.main``: c/d of the 100 MB file through
-             auto, ``--backend device`` on the 5.2 MB file). Each path runs
+             auto, ``--backend device`` on the 5.2 MB file); the sharded
+             backend (``[sharded]``): at world 1, a one-rank NCCL group, the
+             5.2 MB text through every route, the 5 MB skewed body through
+             "onepass" and "fused", the 100 MB text compressed and decompressed
+             once (untiled) with its peak device memory beside the device
+             backend's; then world 2 on the one card, two spawned processes in
+             a gloo group, the 5.2 MB text and 5 MB skewed round trips through
+             "onepass" and "host" (.et equal the host backend's, the same
+             fixed-point passes on both ranks, a timeout). Each path runs
              with the launch counts set to 0 and must launch each of its
              kernels; no self-sync host fallback; warm times of every route,
-             of auto and of the host backend side by side;
+             of auto and of the host backend side by side, and of the sharded
+             backend beside the device backend's;
 5. stages  — each corpus's compress and decompress split into the
              pipeline's stages (``entreepy_tpu_torch.trace.record_stages``:
              host clock, the device synchronized at each stage's end; the
@@ -71,6 +80,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as tdist
+import torch.multiprocessing as tmp
 
 ROOT = Path(__file__).resolve().parent
 if not (ROOT / "entreepy_tpu_torch" / "csrc").is_dir():
@@ -89,6 +100,8 @@ from entreepy_tpu_torch.ops.bitpack import (  # noqa: E402
     grouped_counts_plane, plane_cap_g, plane_sub_for,
 )
 from entreepy_tpu_torch.ops.encode import DEFAULT_BLOCK_BYTES, TILE_BLOCKS  # noqa: E402
+from entreepy_tpu_torch.parallel import dist as pdist  # noqa: E402
+from entreepy_tpu_torch.parallel import make_mesh  # noqa: E402
 from entreepy_tpu_torch.tables import (  # noqa: E402
     body_for, code_tensors_for, decode_tables_for, expand_tables_for,
 )
@@ -128,7 +141,17 @@ PATH_KERNELS = {
     "auto": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks),
     "cli": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks,
             cuda_compact.compact_rows),
+    # the sharded backend at world 1: every route, so all seven kernels
+    "sharded": tuple(KERNELS),
 }
+# World 1 of the sharded phase: each corpus through these routes.
+SHARDED_CASES = (("text 5.2 MB", decode8.EXPAND_MODES), ("skewed 5 MB", ("onepass", "fused")))
+# World 2 of the sharded phase: two ranks on the one card, in a gloo group
+# (NCCL takes one card per rank), each round trip through these routes.
+WORLD2_CASES = (("text 5.2 MB", "text", 5_200_000), ("skewed 5 MB", "skewed", 5 * MB))
+WORLD2_ROUTES = ("onepass", "host")
+WORLD2_TIMEOUT_S = 400
+WORLD2_KERNELS = ("sync_pass", "fused_pass", "emit_pass", "pack_blocks", "compact_rows")
 
 
 def corpus(kind: str, n_bytes: int) -> bytes:
@@ -325,6 +348,92 @@ def print_launches(label: str, before: dict) -> None:
     print(f"[e2e] {label} launches: {{"
           + ", ".join(f"{KERNELS[f][0]}: {f.launches - n}" for f, n in before.items()
                       if f.launches > n) + "}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def world2_rank(rank: int, port: int, out: str) -> None:
+    """One rank of the world-2 sharded run (a spawned process; its device is
+    cuda:0, rank % 1): the round trips of WORLD2_CASES through
+    WORLD2_ROUTES with the sharded backend, each .et equal to the host
+    backend's; writes its fixed-point passes, times (median of 3 warm
+    calls), exit all-gather ms and kernel launches to ``out``."""
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                             rank=rank)
+    try:
+        require(make_mesh().world == 2, "world-2 mesh is not two ranks")
+        res = {}
+        for name, kind, n in WORLD2_CASES:
+            data = corpus(kind, n)
+            blob = et.compress(data, backend="sharded")
+            require(blob == et.compress(data, backend="host"),
+                    f"world 2 {name}: .et differs from the host backend's")
+            res[name] = {"compress_ms": wall_ms(lambda: et.compress(data, backend="sharded"), 3)}
+            for route in WORLD2_ROUTES:
+                require(et.decompress(blob, backend="sharded", expand=route) == data,
+                        f"world 2 {name} expand={route}: round trip differs")
+                passes = pdist.last_decode_stats["passes"]
+                ms = wall_ms(lambda: et.decompress(blob, backend="sharded", expand=route), 3)
+                with trace.record_stages() as stages:
+                    et.decompress(blob, backend="sharded", expand=route)
+                res[name][route] = {"passes": passes, "ms": ms,
+                                    "allgather_ms": stages["allgather_exits"]}
+        res["launches"] = {KERNELS[fn][0]: fn.launches for fn in KERNELS}
+        res["host_fallbacks"] = decode8.decode_host.calls
+        Path(out).write_text(json.dumps(res))
+    finally:
+        tdist.destroy_process_group()
+
+
+def run_world2(card: str) -> None:
+    """The world-2 sharded run: two spawned ranks on the one card; a rank
+    that fails, or a run past WORLD2_TIMEOUT_S, fails the smoke."""
+    ctx = tmp.get_context("spawn")
+    port = free_port()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
+        outs = [Path(tmpdir) / f"rank{r}.json" for r in range(2)]
+        procs = [ctx.Process(target=world2_rank, args=(r, port, str(o)))
+                 for r, o in enumerate(outs)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + WORLD2_TIMEOUT_S
+        for p in procs:
+            p.join(timeout=max(0.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        require(not hung, f"world 2: ranks {hung} did not finish in {WORLD2_TIMEOUT_S} s")
+        codes = [p.exitcode for p in procs]
+        require(codes == [0, 0], f"world 2: rank exit codes {codes}")
+        ranks = [json.loads(o.read_text()) for o in outs]
+    wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        require(res["host_fallbacks"] == 0, f"world 2 rank {r} fell back to the host decoder")
+        idle = [k for k in WORLD2_KERNELS if res["launches"][k] == 0]
+        require(not idle, f"world 2 rank {r} never launched {idle}")
+        print(f"[sharded] world 2 rank {r} kernel launches: {res['launches']}")
+    for name, _, _ in WORLD2_CASES:
+        for route in WORLD2_ROUTES:
+            got = [res[name][route] for res in ranks]
+            passes = [g["passes"] for g in got]
+            require(len(set(passes)) == 1, f"world 2 {name} {route}: passes differ {passes}")
+            print(f"[sharded] world 2 (gloo, 2 ranks on cuda:0) {name} expand={route}: "
+                  f"round trip ok, .et == host, fixed-point passes per rank {passes}, "
+                  f"decompress ms per rank {[round(g['ms'], 3) for g in got]}, exit "
+                  f"all-gathers ms per rank {[round(g['allgather_ms'], 3) for g in got]} | "
+                  f"compress ms per rank {[round(res[name]['compress_ms'], 3) for res in ranks]}"
+                  f" | warm median of 3 | {card}")
+    print(f"[sharded] world 2: both ranks exit 0 in {wall:.1f} s (spawn included) | {card}")
 
 
 def run_path(path: str, drive) -> dict:
@@ -642,6 +751,82 @@ def main(argv: list[str]) -> int:
                 print(f"[cli] {' '.join(flags) or '(auto)'} c + d {name}: exit 0, .et == host, "
                       f"decoded == input, {wall:.1f} ms both | {card}")
 
+    def peak_call(fn):
+        """(fn(), its wall ms, its peak device memory above what was held
+        before it)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() - base
+
+    sharded = {}  # (name, op) -> (ms, passes, all-gather ms) or, at 100 MB, (ms, peak B)
+
+    def sharded_path():
+        """World 1: a one-rank NCCL group (at one rank the collectives call
+        nothing). Only sharded calls run here, so the counts are its own."""
+        tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                 world_size=1, rank=0)
+        try:
+            mesh = make_mesh()
+            require(mesh.group is not None and mesh.world == 1, f"world-1 mesh {mesh}")
+            for name, routes in SHARDED_CASES:
+                data, blob = data_of[name], e2e_blobs[name]
+                require(et.compress(data, backend="sharded") == blob,
+                        f"sharded {name}: .et differs from the host backend's")
+                sharded[name, "compress"] = (
+                    wall_ms(lambda: et.compress(data, backend="sharded"), 3), None, None)
+                for route in routes:
+                    before = launch_counts()
+                    require(et.decompress(blob, backend="sharded", expand=route) == data,
+                            f"sharded {name} expand={route}: round trip differs")
+                    passes = pdist.last_decode_stats["passes"]
+                    print_launches(f"{name} sharded decompress expand={route}", before)
+                    ms = wall_ms(lambda: et.decompress(blob, backend="sharded", expand=route), 3)
+                    with trace.record_stages() as stages:
+                        et.decompress(blob, backend="sharded", expand=route)
+                    sharded[name, route] = (ms, passes, stages["allgather_exits"])
+            sharded.update(big_calls("sharded"))
+        finally:
+            tdist.destroy_process_group()
+
+    def big_calls(backend: str) -> dict:
+        """The 100 MB text compressed and decompressed once through
+        ``backend``: wall ms and peak device memory of each call."""
+        name = "text 100 MB"
+        data, blob = data_of[name], e2e_blobs[name]
+        got, enc, enc_peak = peak_call(lambda: et.compress(data, backend=backend))
+        require(got == blob, f"{backend} {name}: .et differs from the host's")
+        got, dec, dec_peak = peak_call(lambda: et.decompress(blob, backend=backend))
+        require(got == data, f"{backend} {name}: round trip differs")
+        return {(name, "compress"): (enc, enc_peak), (name, "onepass"): (dec, dec_peak)}
+
+    def sharded_beside_device():
+        """The sharded path's times beside the same calls through the device
+        backend, in the same process."""
+        for name, routes in SHARDED_CASES:
+            data, blob = data_of[name], e2e_blobs[name]
+            for op in ("compress", *routes):
+                ms, passes, gather_ms = sharded[name, op]
+                if op == "compress":
+                    dev_ms = wall_ms(lambda: et.compress(data, backend="device"), 3)
+                    what = "compress: .et == host"
+                else:
+                    dev_ms = wall_ms(lambda: et.decompress(blob, backend="device", expand=op), 3)
+                    what = (f"decompress expand={op}: round trip ok, fixed-point passes "
+                            f"{passes}, exit all-gathers {gather_ms:.3f} ms")
+                print(f"[sharded] world 1 (NCCL) {name} {what} | sharded {ms:.3f} ms, device "
+                      f"{dev_ms:.3f} ms | warm median of 3 | {card}")
+        name = "text 100 MB"
+        device = big_calls("device")
+        print(f"[sharded] {name}, one call each, ms and peak device memory above what was "
+              f"held before the call (torch.cuda.max_memory_allocated): " + " | ".join(
+                  f"{backend} {op} {got[name, op][0]:.3f} ms peak {got[name, op][1]} B"
+                  for backend, got in (("sharded (untiled)", sharded), ("device (tiled)", device))
+                  for op in ("compress", "onepass")) + f" | {card}")
+
     launches = run_path("device", device_path)
     for route in ("split", "fused", "host"):
         counts = run_path(route, lambda: two_pass_path(route))
@@ -652,9 +837,12 @@ def main(argv: list[str]) -> int:
                           for route, ms in dec_ms[name].items())
               + (" | warm median of 2 (expand=host: 1 run)" if len(data) > 20 * MB
                  else " | warm median of 5") + f" | {card}")
-    for path, drive in (("tiles", tiles_path), ("auto", auto_path), ("cli", cli_path)):
+    for path, drive in (("tiles", tiles_path), ("auto", auto_path), ("cli", cli_path),
+                        ("sharded", sharded_path)):
         counts = run_path(path, drive)
         launches = {fn: launches[fn] + counts[fn] for fn in KERNELS}
+    sharded_beside_device()
+    run_world2(card)
 
     # 5. stages of the device backend (and, with ENTREEPY_PROFILE, the device's busy share)
     for name, data in cases:

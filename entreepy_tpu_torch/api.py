@@ -10,6 +10,13 @@ Backends with byte-identical output:
   to the CPU. ``decompress``'s ``expand`` picks the decode route on the
   device (see ``ops.decode8``): "onepass" (default), the two-pass "split"
   and "fused", or "host" (device state passes, host expansion).
+* ``sharded`` — the same kernels over the ranks of a ``torch.distributed``
+  process group, one device per rank (``entreepy_tpu_torch.parallel``):
+  blocks and chunks split over the ranks, whose collectives join them.
+  Every rank makes the same call and gets the same result. Without a group
+  it is one rank. ``device`` and ``expand`` as for ``device``; without a
+  CUDA device and without ``device="cpu"`` it raises
+  :class:`NoCudaDeviceError`.
 * ``host`` — the host codec (``format.compress_host`` /
   ``decompress_host``, the port's copy of the JAX package's, with its C++
   runtime in ``runtime``).
@@ -19,8 +26,9 @@ Backends with byte-identical output:
   beats ``H2D_MIN_BYTES_PER_S``, else host. Without a CUDA device the probe
   is False, so auto runs on the host. ``ENTREEPY_DEVICE_MIN=<bytes>``
   replaces the threshold at call time. Where the JAX package picks
-  ``sharded`` (more than one device), the port picks ``device``: the
-  ``sharded`` backend is not ported yet and raises ``NotImplementedError``.
+  ``sharded`` (more than one device), the port picks ``sharded`` in an
+  initialized process group of more than one rank, since one rank drives
+  one card; a single process that sees several cards stays on ``device``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import warnings
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from . import runtime
 from .format import compress_host, decompress_host, parse_header
@@ -105,22 +114,19 @@ def _device_min(n_bytes: int = 0) -> int:
 
 
 def _pick_backend(backend: str | None, n_bytes: int) -> str:
-    """"host" or "device" for a call of ``n_bytes`` (see the module
-    docstring). Auto picks the device backend only when a CUDA device
+    """"host", "device" or "sharded" for a call of ``n_bytes`` (see the
+    module docstring). Auto picks a device backend only when a CUDA device
     exists."""
-    if backend in ("device", "host"):
+    if backend in ("device", "host", "sharded"):
         return backend
-    if backend == "sharded":
-        raise NotImplementedError(
-            "backend='sharded' is not ported yet; pass 'device', 'host' or None"
-        )
     if backend is not None:
         raise ValueError(
             f"unknown backend {backend!r} (want None, 'host', 'device', 'sharded')"
         )
     if n_bytes < _device_min(n_bytes) or not torch.cuda.is_available():
         return "host"
-    return "device"
+    group = dist.is_available() and dist.is_initialized()
+    return "sharded" if group and dist.get_world_size() > 1 else "device"
 
 
 def _call_backend(backend: str | None, device, n_bytes: int) -> str:
@@ -135,15 +141,15 @@ def _call_backend(backend: str | None, device, n_bytes: int) -> str:
     return _pick_backend(backend, n_bytes)
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device the ``device`` backend runs on: ``cuda`` by default, or the
-    one given. Raises when it is a CUDA device and none is present."""
+def resolve_device(device=None, backend: str = "device") -> torch.device:
+    """The device ``backend`` runs on: ``cuda`` by default, or the one
+    given. Raises when it is a CUDA device and none is present."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev} (want cuda or cpu)")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise NoCudaDeviceError(
-            "backend='device' needs a CUDA device and torch.cuda.is_available() "
+            f"backend={backend!r} needs a CUDA device and torch.cuda.is_available() "
             "is False; pass device='cpu' to run the kernels' plain PyTorch "
             "versions, or backend='host'"
         )
@@ -154,18 +160,27 @@ def compress(data: bytes, *, strict: bool = True, backend: str | None = None,
              device=None, progress=None) -> bytes:
     """Compress ``data`` into a complete .et file (magic, dict, packed body).
 
-    backend: None (auto), "device" or "host"; device: the torch device of
-    the device backend (default ``cuda``; passing one selects that
-    backend). progress: optional ``(pct, msg)`` callback.
+    backend: None (auto), "device", "sharded" or "host"; device: the torch
+    device of a device backend (default ``cuda``, for ``sharded`` this
+    rank's card; passing one alone selects ``device``). progress: optional
+    ``(pct, msg)`` callback.
     """
-    if _call_backend(backend, device, len(data)) == "host":
+    choice = _call_backend(backend, device, len(data))
+    if choice == "host":
         return compress_host(data, strict=strict, progress=progress)
-    from .ops.encode import compress_device
-
-    dev = resolve_device(device)
     tick = progress or (lambda pct, msg: None)
-    tick(20, "Counting characters...")
-    out = compress_device(data, device=dev, strict=strict)
+    if choice == "sharded":
+        from .parallel import compress_sharded, make_mesh
+
+        mesh = make_mesh(device=device)
+        tick(20, "Counting characters...")
+        out = compress_sharded(data, mesh, strict=strict)
+    else:
+        from .ops.encode import compress_device
+
+        dev = resolve_device(device)
+        tick(20, "Counting characters...")
+        out = compress_device(data, device=dev, strict=strict)
     tick(90, "Writing compressed text...")
     return out
 
@@ -174,8 +189,8 @@ def decompress(et: bytes, *, backend: str | None = None, device=None,
                expand: str = "onepass", progress=None) -> bytes:
     """Decompress a complete .et file back to the original bytes.
 
-    backend: None (auto), "device" or "host"; device: as in
-    :func:`compress`. expand: the device backend's decode route —
+    backend: None (auto), "device", "sharded" or "host"; device: as in
+    :func:`compress`. expand: the device backends' decode route —
     "onepass" (default), "split" or "fused" (two-pass, split or full expand
     table; the JAX package's ENTREEPY_EXPAND), or "host" (two-pass, states
     expanded on the host; its ENTREEPY_DEVICE_E2E=0). Any other value
@@ -184,12 +199,20 @@ def decompress(et: bytes, *, backend: str | None = None, device=None,
     from .ops.decode8 import check_expand, decompress_device
 
     check_expand(expand)
-    if _call_backend(backend, device, len(et)) == "host":
+    choice = _call_backend(backend, device, len(et))
+    if choice == "host":
         return decompress_host(et, progress=progress)
-    dev = resolve_device(device)
     tick = progress or (lambda pct, msg: None)
-    tick(20, "Decoding text...")
-    out = decompress_device(et, device=dev, expand=expand)
+    if choice == "sharded":
+        from .parallel import decompress_sharded, make_mesh
+
+        mesh = make_mesh(device=device)
+        tick(20, "Decoding text...")
+        out = decompress_sharded(et, mesh, expand=expand)
+    else:
+        dev = resolve_device(device)
+        tick(20, "Decoding text...")
+        out = decompress_device(et, device=dev, expand=expand)
     tick(90, "Writing decoded text...")
     return out
 

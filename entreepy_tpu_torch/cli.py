@@ -6,7 +6,10 @@ long forms, the default output names, the size summary on stderr, the ``-d``
 dictionary dump and the progress bar. The parser, the naming, the help
 text's reference part and the dump are the port's own copies of the JAX
 package's; :func:`main` runs the port's ``api``. ``--backend`` takes
-``host`` or ``device``; ``sharded`` is not ported yet and exits 1.
+``host``, ``device`` or ``sharded`` (the ranks of a ``torch.distributed``
+group, e.g. one process per card under ``torchrun``; one rank without a
+group). A backend that cannot run, such as a device backend without a
+CUDA device, exits 1 with ``error: ...``.
 """
 
 from __future__ import annotations
@@ -48,9 +51,9 @@ Examples:
 
 HELP_TEXT = REFERENCE_HELP_TEXT + """
 PyTorch/CUDA extensions:
-    --backend       force a codec backend: host | device
-                    (default: auto — device on a CUDA card for large inputs;
-                    sharded is not ported yet)
+    --backend       force a codec backend: host | device | sharded
+                    (default: auto — device on a CUDA card for large inputs,
+                    sharded in a process group of more than one rank)
 """
 
 

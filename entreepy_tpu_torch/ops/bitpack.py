@@ -2,8 +2,12 @@
 
 Counterpart of ``entreepy_tpu/ops/bitpack.py``. The block pack itself is
 ``ops/cuda_pack.pack_blocks``; the compaction runs through
-``ops/cuda_compact.compact_rows``. The TPU's sort-based twins and the flat
-(exact-size) compaction do not come across.
+``ops/cuda_compact.compact_rows``. The TPU's sort-based twins do not come
+across. The single-device encode fetches the plane
+(:func:`compact_payload_plane`) and slices it on the host; the sharded
+encode packs the plane into one flat stream on the device first
+(:func:`compact_payload_flat`), so only about the compressed size crosses
+to the host and between ranks.
 """
 
 from __future__ import annotations
@@ -69,6 +73,30 @@ def compact_payload_plane(words: torch.Tensor, emitted: torch.Tensor,
     plane = torch.cat([pay, acc.view(torch.int32)[:, None]], dim=1)
     bit_lens = torch.where(overflow, -1, counts_g.sum(1, dtype=torch.int32) * 32 + nbits)
     return plane.view(torch.uint32), counts_g, bit_lens
+
+
+def compact_payload_flat(words: torch.Tensor, emitted: torch.Tensor, acc: torch.Tensor,
+                         nbits: torch.Tensor, cap_g: int):
+    """Two-stage device compaction to ONE flat word stream.
+
+    Stage 1 is :func:`compact_payload_plane` (the compaction kernel; size
+    ``cap_g`` with :func:`grouped_counts_plane` + :func:`plane_cap_g`, and
+    an overflow poisons ``bit_lens`` to -1). Stage 2 selects every lane's
+    live prefix of each subgroup and its final partial word, in (lane,
+    subgroup, slot) order, into one stream: what leaves the device is the
+    compressed stream, not the plane's per-subgroup cap slack.
+
+    Returns (flat uint32[sum(nwords)], nwords int32[lanes] = count + 1 per
+    lane, bit_lens int32[lanes]). Lane l's words live at
+    ``flat[sum(nwords[:l]) : sum(nwords[:l+1])]``."""
+    plane, counts_g, bit_lens = compact_payload_plane(words, emitted, acc, nbits, cap_g)
+    lanes, g = counts_g.shape
+    cg = (plane.shape[1] - 1) // g
+    slot = torch.arange(cg, device=plane.device)
+    live = torch.cat([(slot[None, None, :] < counts_g[:, :, None]).reshape(lanes, g * cg),
+                      torch.ones(lanes, 1, dtype=torch.bool, device=plane.device)], dim=1)
+    flat = torch.masked_select(plane.view(torch.int32), live)
+    return flat.view(torch.uint32), counts_g.sum(1, dtype=torch.int32) + 1, bit_lens
 
 
 def assemble_plane_payload(

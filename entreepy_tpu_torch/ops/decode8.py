@@ -73,8 +73,12 @@ def bytes_to_cols(padded: np.ndarray, lanes: int, k: int, device) -> torch.Tenso
     return torch.from_numpy(padded.reshape(lanes, k)).to(device)
 
 
+def _one_rank(exits: torch.Tensor):
+    return exits, 0
+
+
 def _fixed_point(xs: torch.Tensor, next_state: torch.Tensor, n_real_lanes: int,
-                 entry0: int | torch.Tensor, run_pass):
+                 entry0: int | torch.Tensor, run_pass, gather=_one_rank):
     """Entry states of xs uint8[K, lanes] to their fixed point: the suffix
     sync pass guesses each lane's entry, then ``run_pass(entries) -> (out,
     exits int32[lanes])`` runs until no real lane's entry changes. Lanes from
@@ -83,23 +87,32 @@ def _fixed_point(xs: torch.Tensor, next_state: torch.Tensor, n_real_lanes: int,
     tensor on the device (a previous tile's exit, read without a host sync).
     Returns (out, exits, unconverged bool) of the last pass.
 
+    ``gather(exits) -> (exits of every lane in rank order, this rank's first
+    lane)`` spans the chain over ranks that each hold ``lanes`` of the
+    lanes (the sharded decode; the default is one rank holding them all).
+    The chain, the convergence test, ``n_real_lanes``, ``entry0`` and the
+    returned exits are over every lane; each pass gets this rank's slice.
+    The loop decides only on gathered values, so every rank runs the same
+    passes (and the same collectives).
+
     The fixed point is a Python loop with one small device-to-host check per
     pass; it normally runs one pass (the suffix guess is near exact)."""
     k, lanes = xs.shape
     dev = xs.device
-    real = torch.arange(lanes, device=dev) < n_real_lanes
     e0 = (entry0.reshape(1) if torch.is_tensor(entry0)
           else torch.full((1,), entry0, dtype=torch.int32, device=dev))
     w = min(SYNC_WINDOW, k)
-    suffix_exits = sync_pass(xs[k - w:], next_state,
-                             torch.zeros(lanes, dtype=torch.int32, device=dev))
+    suffix_exits, lo = gather(sync_pass(xs[k - w:], next_state,
+                                        torch.zeros(lanes, dtype=torch.int32, device=dev)))
+    real = torch.arange(suffix_exits.numel(), device=dev) < n_real_lanes
     entries = torch.cat([e0, suffix_exits[:-1]])
     prev = entries - 1  # forces the first pass
     out = exits = None
     for _ in range(MAX_SYNC_PASSES):
         if not bool(((entries != prev) & real).any()):
             break
-        out, exits = run_pass(entries)
+        out, exits = run_pass(entries[lo:lo + lanes])
+        exits, _ = gather(exits)
         prev, entries = entries, torch.cat([e0, exits[:-1]])
     unconverged = bool(((entries != prev) & real).any())
     return out, exits, unconverged
@@ -108,28 +121,33 @@ def _fixed_point(xs: torch.Tensor, next_state: torch.Tensor, n_real_lanes: int,
 def fsm8_decode_fused(cols: torch.Tensor, next_state: torch.Tensor,
                       t_fused: torch.Tensor, n_real_lanes: int, m: int,
                       mt: int, s: int, *, packed: bool = False,
-                      n_valid: int | None = None, entry0: int | torch.Tensor = 0):
+                      n_valid: int | None = None, entry0: int | torch.Tensor = 0,
+                      gather=_one_rank):
     """One-pass decode of cols uint8[lanes, K] -> (vals, exits int32[lanes],
     unconverged bool). vals is int32[K, m+1, lanes], or with ``packed``
-    MASKED one-word rows int32[K, lanes] (``n_valid`` required). Padding
-    lanes and ``entry0`` as in :func:`_fixed_point`."""
+    MASKED one-word rows int32[K, lanes] (``n_valid`` required, in this
+    rank's lane-linear positions). Padding lanes, ``entry0`` and
+    ``gather`` as in :func:`_fixed_point`."""
     xs = cols.t().contiguous()  # [K, lanes]
     return _fixed_point(
         xs, next_state, n_real_lanes, entry0,
         lambda entries: fused_pass(xs, t_fused, entries, m, mt, s,
                                    packed=packed, n_valid=n_valid),
+        gather,
     )
 
 
-def fsm8_decode(xs: torch.Tensor, next_state: torch.Tensor, n_real_lanes: int):
+def fsm8_decode(xs: torch.Tensor, next_state: torch.Tensor, n_real_lanes: int,
+                gather=_one_rank):
     """The two-pass decode's state pass: emit passes over xs uint8[K, lanes]
     (the kernels' layout; the JAX package's is its transpose) to the fixed
     point, lane 0 entering at the root. Returns (states uint8[K, lanes],
     each byte's pre-transition state, and unconverged bool). Padding lanes
-    as in :func:`_fixed_point`."""
+    and ``gather`` as in :func:`_fixed_point`."""
     states, _exits, unconverged = _fixed_point(
         xs, next_state, n_real_lanes, 0,
         lambda entries: emit_pass(xs, next_state, entries),
+        gather,
     )
     return states, unconverged
 

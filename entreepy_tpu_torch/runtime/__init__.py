@@ -43,6 +43,8 @@ _ENTRIES = (
     ("et_unpack_body", _ll, [_u8p, _ll, _i32p, _int, _u8p, _ll]),
     ("et_decode_parallel", _ll, [_u8p, _ll, _i32p, _int, _ll, _u8p, _ll, _int, _int]),
     ("et_fsm8_expand", _ll, [_u8p, _u8p, _ll, _i8p, _u8p, _u8p, _ll]),
+    ("et_fsm8_expand_chunks", _ll,
+     [_u8p, _u8p, _ll, _i8p, _u8p, _ll, _ll, _u8p, _i64p, _i64p, _int]),
     ("et_fsm8_decode_parallel", _ll, [_u8p, _ll, _u8p, _i8p, _u8p, _ll, _u8p, _ll, _int]),
     ("et_histogram", None, [_u8p, _ll, _i64p, _int]),
     ("et_histogram_blocks", None, [_u8p, _ll, _ll, _i64p, _int]),
@@ -220,6 +222,33 @@ def fsm8_expand(states, body, counts_tbl, syms_tbl, n_symbols: int):
             f"bitstream ended early: decoded fewer than {n_symbols} symbols"
         )
     return out[:n_symbols], int(r)
+
+
+def fsm8_expand_chunks(states, body, counts_tbl, syms_tbl, chunk_bytes: int,
+                       m: int):
+    """Expand a precomputed state/byte region into per-chunk symbol rows.
+
+    Returns (rows uint8[nc, chunk_bytes*m + 8] — chunk symbols
+    left-justified, chunk_counts int64[nc], w_inv int64[nc]) or None if no
+    lib. Validation is the caller's (ops/decode8.validate_chunk_meta)."""
+    lib = _load()
+    if lib is None:
+        return None
+    st = np.ascontiguousarray(states, dtype=np.uint8).reshape(-1)
+    bd = np.ascontiguousarray(body, dtype=np.uint8).reshape(-1)
+    n = st.size
+    nc = max(1, -(-n // chunk_bytes))
+    cap = chunk_bytes * m + 8
+    out = np.empty((nc, cap), dtype=np.uint8)
+    counts = np.zeros(nc, dtype=np.int64)
+    w_inv = np.full(nc, -1, dtype=np.int64)
+    lib.et_fsm8_expand_chunks(
+        st, bd, n,
+        np.ascontiguousarray(counts_tbl.reshape(-1), dtype=np.int8),
+        np.ascontiguousarray(syms_tbl.reshape(-1), dtype=np.uint8),
+        chunk_bytes, m, out.reshape(-1), counts, w_inv, 0,
+    )
+    return out, counts, w_inv
 
 
 def map_bytes(data, lut16: np.ndarray):

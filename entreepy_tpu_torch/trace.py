@@ -4,10 +4,13 @@ Every stage of ``ops.encode.compress_device`` and
 ``ops.decode8.decompress_device`` runs inside :func:`phase`. Normally that is
 ``utils.trace.phase``: one stderr line per stage when
 ``ENTREEPY_TRACE=1``, otherwise nothing. Inside :func:`record_stages` each
-stage instead ends with a device synchronize and adds its host-clock time to
-a dict, so asynchronous device work is charged to the stage that queued it.
-That costs one ``torch.cuda.synchronize()`` per stage, about a dozen per
-call, and is off unless a caller asks for it.
+stage instead starts and ends with a device synchronize and adds its
+host-clock time to a dict, so asynchronous device work is charged to the
+stage that queued it, also where one stage runs inside another (the
+sharded decode's ``allgather_exits`` inside ``device_fsm8_decode``; the
+outer stage's time includes the inner one's). That costs two
+``torch.cuda.synchronize()`` per stage, a few dozen per call, and is off
+unless a caller asks for it.
 
 :func:`maybe_profile` is the ``torch.profiler`` twin of the JAX package's:
 with ``ENTREEPY_PROFILE=<dir>`` it traces the block (host, and the card's
@@ -40,6 +43,7 @@ def phase(name: str, nbytes: int | None = None):
         with _env_phase(name, nbytes):
             yield
         return
+    _sync()
     t0 = time.perf_counter()
     yield
     _sync()

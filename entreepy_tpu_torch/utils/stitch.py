@@ -44,11 +44,13 @@ def stitch_words(payloads, bit_lens) -> tuple[np.ndarray, int]:
 
 
 def stitch_flat_payload(
-    flat: np.ndarray, nwords: np.ndarray, bit_lens
+    flat: np.ndarray, nwords: np.ndarray, bit_lens, offs: np.ndarray | None = None
 ) -> tuple[np.ndarray, int]:
     """Stitch the device compaction's flat layout: block l's ``nwords[l]``
-    words start at ``sum(nwords[:l])``. Dispatches to the C++ runtime, else
-    per-block views through :func:`stitch_words`."""
+    words start at ``offs[l]`` (default ``sum(nwords[:l])``, the
+    single-device layout; the sharded encode passes rank-based offsets).
+    Dispatches to the C++ runtime, else per-block views through
+    :func:`stitch_words`."""
     nw = np.asarray(nwords, dtype=np.int64)
     bl = np.asarray(bit_lens, dtype=np.int64)
     if bl.size and bl.min(initial=0) < 0:
@@ -56,7 +58,9 @@ def stitch_flat_payload(
         # overflow; enforce the fail-loud contract at the consumption point
         # instead of emitting a silently corrupt stream.
         raise ValueError("negative block bit length: device compaction overflowed")
-    offs = np.concatenate([[0], np.cumsum(nw)[:-1]]).astype(np.int64)
+    if offs is None:
+        offs = np.concatenate([[0], np.cumsum(nw)[:-1]])
+    offs = np.asarray(offs, dtype=np.int64)
     native = runtime.stitch_flat(flat, offs, bl)
     if native is not None:
         return native
@@ -68,3 +72,14 @@ def words_to_bytes(words: np.ndarray, total_bits: int) -> bytes:
     """Big-endian u32 words -> the stream's bytes (zero-padded final byte)."""
     n_bytes = (total_bits + 7) // 8
     return words.astype(">u4").tobytes()[:n_bytes]
+
+
+def split_blocks(arr: np.ndarray, block_bytes: int) -> tuple[np.ndarray, np.ndarray]:
+    """Reshape a byte array into zero-padded [n_blocks, block_bytes] + valid counts."""
+    n = arr.size
+    n_blocks = max(1, -(-n // block_bytes))
+    padded = np.zeros(n_blocks * block_bytes, dtype=np.uint8)
+    padded[:n] = arr
+    valid = np.full(n_blocks, block_bytes, dtype=np.int32)
+    valid[-1] = n - (n_blocks - 1) * block_bytes
+    return padded.reshape(n_blocks, block_bytes), valid

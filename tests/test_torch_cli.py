@@ -87,12 +87,14 @@ def test_help_text(capsys):
     out = capsys.readouterr().out
     assert out == tcli.HELP_TEXT
     assert out.startswith(jcli.REFERENCE_HELP_TEXT)
-    assert "--backend" in out and "host | device" in out and "sharded" in out
+    assert "--backend" in out and "host | device | sharded" in out
+    assert "not ported" not in out
     assert tcli.main(["--help"]) == 0 and capsys.readouterr().out == out
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--backend", "sharded", "c", "play.txt"], "error: backend='sharded' is not ported"),
+    (["--backend", "sharded", "c", "play.txt"], "error: backend='sharded' needs a CUDA device"),
+    (["--backend", "sharded", "d", "play.txt.et"], "error: backend='sharded' needs a CUDA device"),
     (["--backend", "device", "c", "play.txt"], "error: backend='device' needs a CUDA device"),
     (["--backend", "device", "d", "play.txt.et"], "error: backend='device' needs a CUDA device"),
 ])

@@ -176,9 +176,11 @@ def test_backends_and_helpers(tmp_path, macbeth):
     # backend=None routes (auto: the host codec for a small input)
     assert entreepy_tpu_torch.compress(macbeth, backend=None) == et
     assert entreepy_tpu_torch.decompress(et, backend=None) == macbeth
-    for bad, exc in (("sharded", NotImplementedError), ("tpu", ValueError)):
-        with pytest.raises(exc):
-            entreepy_tpu_torch.compress(macbeth, backend=bad)
+    with pytest.raises(ValueError):
+        entreepy_tpu_torch.compress(macbeth, backend="tpu")
+    # backend="sharded" runs: one rank without a process group
+    assert entreepy_tpu_torch.compress(macbeth, backend="sharded", device="cpu") == et
+    assert entreepy_tpu_torch.decompress(et, backend="sharded", device="cpu") == macbeth
     src = tmp_path / "m.txt"
     src.write_bytes(macbeth)
     out = entreepy_tpu_torch.compress_file(src, backend="device", device="cpu")
@@ -268,6 +270,35 @@ def test_pick_backend_matches_jax(env, runtime_ok, fast, n, want, apis, monkeypa
         monkeypatch.setattr(mod, "_h2d_fast", _boom if fast is None else (lambda: fast))
     jax_pick = japi._pick_backend(None, n)
     assert {"sharded": "device"}.get(jax_pick, jax_pick) == tapi._pick_backend(None, n) == want
+
+
+@pytest.mark.parametrize("world,want", [(None, "device"), (1, "device"), (2, "sharded"),
+                                        (4, "sharded")])
+def test_auto_picks_sharded_in_a_group(world, want, apis, monkeypatch):
+    """Where the JAX package picks "sharded" (more than one device), the
+    port picks it in a process group of more than one rank: one rank drives
+    one card. Without a group, auto stays "device" at any card count."""
+    _, tapi = apis
+    monkeypatch.setattr(tapi, "_h2d_fast", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: world is not None)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: world)
+    assert tapi._pick_backend(None, POD) == want
+    assert tapi._pick_backend(None, POD - 1) == "host"
+
+
+@pytest.mark.parametrize("name", ["macbeth", "midsummer", "skewed"])
+def test_sharded_backend_matches_jax(name, request):
+    """backend="sharded" on the CPU gives the JAX package's sharded bytes
+    (its 8-device test mesh) and round-trips on every route."""
+    from entreepy_tpu.parallel import compress_sharded, make_mesh
+
+    data = _data(name, request)
+    et = entreepy_tpu_torch.compress(data, backend="sharded", device="cpu")
+    assert et == compress_sharded(data, make_mesh(8)) == compress_host(data)
+    for route in decode8.EXPAND_MODES:
+        assert entreepy_tpu_torch.decompress(et, backend="sharded", device="cpu",
+                                             expand=route) == data
 
 
 def test_device_min_env_warns(apis, monkeypatch):

@@ -405,6 +405,25 @@ def test_decode_routes(kind, expand, dev):
     assert decode8.decode_host.calls == calls
 
 
+@pytest.mark.parametrize("expand", ["onepass", "split", "fused", "host"])
+@pytest.mark.parametrize("kind", ["text", "skewed"])
+def test_sharded_world1_routes(kind, expand, dev):
+    """The sharded backend at one rank (no process group) round-trips on the
+    card through every route, with the host codec's .et, through the
+    kernels and with no host fallback."""
+    data = _corpus(kind)
+    blob = et.compress(data, backend="host")
+    kernels = {"split": cuda_fsm8.expand_pass_split, "fused": cuda_fsm8.expand_pass,
+               "host": cuda_fsm8.emit_pass, "onepass": cuda_fsm8.fused_pass}
+    packs, before = cuda_pack.pack_blocks.launches, kernels[expand].launches
+    calls = decode8.decode_host.calls
+    assert et.compress(data, backend="sharded") == blob
+    assert cuda_pack.pack_blocks.launches == packs + 1
+    assert et.decompress(blob, backend="sharded", expand=expand) == data
+    assert kernels[expand].launches > before
+    assert decode8.decode_host.calls == calls
+
+
 @pytest.mark.parametrize("kind,lanes,steps,offset", [
     ("text", 100, 1024, 0), ("fib", 65, 256, 0), ("skewed", 1, 64, 0),
     ("text", 5079, 1024, 0),    # the encode plane of the 5.2 MB text

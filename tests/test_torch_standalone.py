@@ -139,28 +139,75 @@ def _check_stitch(data: bytes) -> None:
     assert tstitch.words_to_bytes(out, total) == jstitch.words_to_bytes(out, total)
 
 
-def _check_runtime(data: bytes) -> None:
-    assert trt.available() and jrt.available()
-    arr = np.frombuffer(data, np.uint8)
-    _same(trt.histogram(arr), jrt.histogram(arr))
+def _stream_states(data: bytes):
+    """(fsm, packed body, each body byte's state before its transition) of
+    data's code table, or None without one."""
     try:
         table = _table(jfmt, data)
     except ValueError:
-        return
-    _same(trt.pack_body(arr, table.codes, table.lengths),
-          jrt.pack_body(arr, table.codes, table.lengths))
-    body, _ = jrt.pack_body(arr, table.codes, table.lengths)
+        return None
+    body, _ = jrt.pack_body(np.frombuffer(data, np.uint8), table.codes, table.lengths)
     fsm = jfsm8.build_byte_fsm(table)
     buf = np.frombuffer(body, np.uint8)
-    states = np.zeros(buf.size, np.uint8)  # each byte's state before its transition
+    states = np.zeros(buf.size, np.uint8)
     state = 0
     for i, b in enumerate(buf):
         states[i] = state
         state = fsm.next_state[state, b]
+    return fsm, buf, states
+
+
+def _check_runtime(data: bytes) -> None:
+    assert trt.available() and jrt.available()
+    arr = np.frombuffer(data, np.uint8)
+    _same(trt.histogram(arr), jrt.histogram(arr))
+    got = _stream_states(data)
+    if got is None:
+        return
+    table = _table(jfmt, data)
+    _same(trt.pack_body(arr, table.codes, table.lengths),
+          jrt.pack_body(arr, table.codes, table.lengths))
+    fsm, buf, states = got
     for n in (arr.size, arr.size + 1):  # exact, then one symbol short of the stream
         _same(_outcome(lambda: trt.fsm8_expand(states, buf, fsm.counts, fsm.syms, n)),
               _outcome(lambda: jrt.fsm8_expand(states, buf, fsm.counts, fsm.syms, n)))
     assert tsize(len(data)) == jsize(len(data))
+
+
+def _check_split_stitch(data: bytes) -> None:
+    """split_blocks, and stitch_flat_payload with offsets that lay the
+    blocks out of order in the flat array (the sharded encode's layout)."""
+    arr = np.frombuffer(data, np.uint8)
+    for block_bytes in (64, 1000, 1 << 16):
+        _same(tstitch.split_blocks(arr, block_bytes), jstitch.split_blocks(arr, block_bytes))
+    rng = np.random.default_rng(len(data) + 1)
+    words = np.frombuffer(data + bytes(-len(data) % 4), np.uint32).copy()
+    cuts = np.sort(rng.integers(0, words.size + 1, 7))
+    nwords = np.diff(np.concatenate([[0], cuts, [words.size]])).astype(np.int64)
+    bit_lens = np.maximum(nwords * 32 - rng.integers(0, 32, nwords.size), 0)
+    order = rng.permutation(nwords.size)  # block order[i] is the i-th in the flat array
+    offs = np.empty(nwords.size, np.int64)
+    offs[order] = np.cumsum(nwords[order]) - nwords[order]
+    _same(tstitch.stitch_flat_payload(words, nwords, bit_lens, offs=offs),
+          jstitch.stitch_flat_payload(words, nwords, bit_lens, offs=offs))
+
+
+def _check_expand_chunks(data: bytes) -> None:
+    """runtime.fsm8_expand_chunks on the stream's states and on random ones
+    (invalid transitions): each chunk's live symbols, counts and w_inv."""
+    got = _stream_states(data)
+    if got is None:
+        return
+    fsm, buf, states = got
+    m = max(1, int(fsm.counts.max(initial=1)))
+    rand = np.random.default_rng(5).integers(0, fsm.n_states, buf.size).astype(np.uint8)
+    for st in (states, rand):
+        for chunk in (16, 512):
+            rows, counts, w_inv = trt.fsm8_expand_chunks(st, buf, fsm.counts, fsm.syms, chunk, m)
+            want = jrt.fsm8_expand_chunks(st, buf, fsm.counts, fsm.syms, chunk, m)
+            _same((counts, w_inv), want[1:])
+            for c, k in enumerate(counts):  # past a chunk's count the rows are unspecified
+                _same(rows[c, :k], want[0][c, :k])
 
 
 def _check_cli(_data: bytes) -> None:
@@ -180,7 +227,8 @@ def _check_cli(_data: bytes) -> None:
 CHECKS = {
     "codec": _check_codec, "header": _check_header, "code_table": _check_code_table,
     "byte_fsm": _check_byte_fsm, "fsm_tensors": _check_fsm_tensors, "stitch": _check_stitch,
-    "runtime": _check_runtime,
+    "runtime": _check_runtime, "split_stitch": _check_split_stitch,
+    "expand_chunks": _check_expand_chunks,
 }
 CORPORA = ["tiny_text", "macbeth", "midsummer", "random", "skewed", "runheavy", "single"]
 
