@@ -25,6 +25,17 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              written once) over the card's 3.35 TB/s, and its library time
              that of one PyTorch call computing the same function, where one
              exists (the full-table expansion: one advanced-indexing call);
+   guard   — every one of the kernels' 34 template instantiations at small
+             odd shapes (tools/sanitize_kernels.py's calls; lanes 1, 7, 33,
+             300): torch.profiler must see all 34 launch; then each call
+             twice, every input and every tensor the wrappers allocate
+             inside guard bands of a poison byte (0xA5, then 0x5A): no guard
+             band may change (a write out of bounds), no input may change,
+             and the outputs, padding included, must agree between the two
+             poisons (else a kernel read memory nothing wrote or outside its
+             inputs); then the public API's routes on ~200 KB text and
+             skewed bodies and a 7-lane tiled decode, guarded the same way
+             and byte-exact;
 4. e2e     — compress + decompress with backend="device" on 5.2 MB text,
              5 MB skewed / run-heavy / random and 100 MB text: .et bytes equal
              the host backend's, round trips exact, the 374-B golden file
@@ -90,6 +101,7 @@ sys.path.insert(0, str(ROOT))
 
 sys.path.insert(0, str(ROOT / "tools"))
 
+import sanitize_kernels as sk  # noqa: E402  (the [guard] phase)
 import torch_kernel_ab as ab  # noqa: E402  (timing, bounds and corpora, shared)
 from torch_kernel_ab import bound_ms, kernel_ms  # noqa: E402
 
@@ -267,10 +279,16 @@ def expand_check(blob: bytes, split: bool):
     if split:
         args = (xs, states, tables.table, m, tables.mt)
         fn, plain = cuda_fsm8.expand_pass_split, cuda_fsm8.expand_pass_split_plain
+
+        def kernel():
+            return fn(*args)
     else:
         args = (xs, states, tables.table, m)
         fn, plain = cuda_fsm8.expand_pass, cuda_fsm8.expand_pass_plain
-    vk, vp = fn(*args), plain(*args)
+
+        def kernel():  # with the vector table the decode builds once per table
+            return fn(*args, tables.vec)
+    vk, vp = kernel(), plain(*args)
     j = torch.arange(m, device=DEV)[None, :, None]
     err = max(max_err(vk[:, 0], vp[:, 0]),
               max_err(vk[:, 1:], vp[:, 1:], j < (vp[:, 0] & 15)[:, None, :]))
@@ -283,7 +301,7 @@ def expand_check(blob: bytes, split: bool):
 
         max_err(index_call(), vk)
         library = kernel_ms(index_call)
-    expand = (err, kernel_ms(lambda: fn(*args)), cuda_ms(lambda: plain(*args), 3),
+    expand = (err, kernel_ms(kernel), cuda_ms(lambda: plain(*args), 3),
               bound_ms(xs, states, tables.table, vk), library)
 
     k = xs.shape[0]
@@ -623,6 +641,27 @@ def main(argv: list[str]) -> int:
           "(table[byte, j*S + state]); no single PyTorch call computes the others: the "
           "sync, emit and fused passes are serial per-lane walks, the pack a per-block "
           "prefix sum and bit scatter, the compaction a per-column stable compaction")
+    # 3b. guard: every kernel instantiation, launched and checked inside guard bands
+    t0 = time.perf_counter()
+    guard_calls = sk.plan(DEV)
+    seen = sk.profiled_instantiations(guard_calls, DEV)
+    require(seen == set(sk.INSTANTIATIONS),
+            f"[guard] profiler: missing {sorted(set(sk.INSTANTIATIONS) - seen)}, "
+            f"unknown {sorted(seen - set(sk.INSTANTIATIONS))}")
+    faults = sk.guard_calls(guard_calls, DEV)
+    calls_s = time.perf_counter() - t0
+    print(f"[guard] {len(guard_calls)} calls reach {len(seen)}/{len(sk.INSTANTIATIONS)} "
+          f"instantiations (torch.profiler), each run under poisons "
+          f"{', '.join(f'{p:#x}' for p in sk.POISONS)}: {len(faults)} faults in "
+          f"{calls_s:.1f} s | {card}")
+    t0 = time.perf_counter()
+    faults += sk.guard_api(DEV)
+    api_s = time.perf_counter() - t0
+    print(f"[guard] API round trips (~200 KB text and skewed, every route, a 7-lane "
+          f"tiled decode) under both poisons: exact, {len(faults)} faults in total, "
+          f"{api_s:.1f} s | {card}")
+    require(not faults, "[guard] " + " | ".join(faults[:20]))
+
     # 4. end to end, through the public API: each main path with its counts from 0
     golden = (DATA / "nice.shakespeare.txt").read_bytes()
     cases = [("text 5.2 MB", text)] + [
@@ -867,7 +906,9 @@ def main(argv: list[str]) -> int:
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
          "library_ms": library}
         for fn, (err, ms, plain_ms, bound, library) in results.items()
-    ]}))
+    ], "guard": {
+        "instantiations": len(seen), "calls": len(guard_calls), "faults": len(faults),
+        "poisons": list(sk.POISONS), "calls_s": calls_s, "api_s": api_s, "card": card}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,9 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = SRC_DIR.parent.parent / "build" / "entreepy_tpu_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# -lineinfo: line tables for the sanitizer's and profiler's reports (no change to the code)
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 900
 
 _lock = threading.Lock()

@@ -219,23 +219,26 @@ def expand_vector_table(t_exp: torch.Tensor, m: int) -> torch.Tensor:
     """The full table as the expansion kernel reads it: uint8[256, S, P],
     ``vec[x, st, j] = t_exp[x, j*S + st]`` for j <= m, P = m + 1 rounded up
     to 4, 8 or 16, so a byte's values are one aligned vector load. The pad
-    bytes ``j > m`` are left unset: the kernel loads them with the entry but
-    writes no row from them. One copy on ``t_exp``'s device."""
+    bytes ``j > m`` are 0: the kernel loads them with the entry (and writes
+    no row from them), so none may be left unwritten. One copy on
+    ``t_exp``'s device, after a memset where there is a pad; the decode
+    builds it once per table (``tables.ExpandTables.vec``)."""
     m1 = m + 1
     s = t_exp.shape[1] // m1
     p = 4 if m1 <= 4 else 8 if m1 <= 8 else 16
-    vec = torch.empty((256, s, p), dtype=torch.uint8, device=t_exp.device)
+    alloc = torch.zeros if p > m1 else torch.empty
+    vec = alloc((256, s, p), dtype=torch.uint8, device=t_exp.device)
     vec[:, :, :m1] = t_exp.view(256, m1, s).transpose(1, 2)
     return vec
 
 
 def expand_pass(xs: torch.Tensor, states: torch.Tensor, t_exp: torch.Tensor,
-                m: int) -> torch.Tensor:
+                m: int, vec: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel 7 (replaces ``expand_pass_pallas8``); see
-    :func:`expand_pass_plain`. The kernel reads :func:`expand_vector_table`,
-    built here from ``t_exp``: staged in shared memory where it fits a block
-    (128 KB at S = 128, m <= 3), else read through L2 (up to 1 MB at S = 256,
-    m = 8). It writes rows of ``lanes`` rounded up to 8 bytes (aligned
+    :func:`expand_pass_plain`. The kernel reads ``vec``, the
+    :func:`expand_vector_table` of ``t_exp`` (built here when None): staged
+    in shared memory where it fits a block (128 KB at S = 128, m <= 3),
+    else read through L2 (up to 1 MB at S = 256, m = 8). It writes rows of ``lanes`` rounded up to 8 bytes (aligned
     8-byte stores); the result is the ``[K, m+1, lanes]`` view, contiguous
     when ``lanes`` is a multiple of 8."""
     if xs.device.type == "cpu":
@@ -245,7 +248,12 @@ def expand_pass(xs: torch.Tensor, states: torch.Tensor, t_exp: torch.Tensor,
     s = t_exp.shape[1] // (m + 1)
     if not 1 <= m <= 8 or s not in (128, 256) or t_exp.shape[1] != (m + 1) * s:
         raise ValueError(f"expand_pass: bad expand table {tuple(t_exp.shape)}, m={m}")
-    vec = expand_vector_table(t_exp, m)
+    if vec is None:
+        vec = expand_vector_table(t_exp, m)
+    p = 4 if m < 4 else 8 if m < 8 else 16
+    if vec.dtype != torch.uint8 or vec.device != xs.device or not vec.is_contiguous() \
+            or tuple(vec.shape) != (256, s, p):
+        raise ValueError(f"expand_pass: bad vector table {tuple(vec.shape)}, m={m}")
     pitch = -(-lanes // 8) * 8
     out = torch.empty((k, m + 1, pitch), dtype=torch.uint8, device=xs.device)
     with torch.cuda.device(xs.device):

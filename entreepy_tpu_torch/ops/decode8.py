@@ -204,7 +204,7 @@ def run_expand(xs: torch.Tensor, states: torch.Tensor, tables: ExpandTables,
     syms uint8[K, m, lanes]), masked to lane-linear positions < ``n_valid``.
     Both expansions return uint8 rows, so the slots are a view of them."""
     if tables.mt is None:
-        vals = cuda_fsm8.expand_pass(xs, states, tables.table, tables.m)
+        vals = cuda_fsm8.expand_pass(xs, states, tables.table, tables.m, tables.vec)
     else:
         vals = cuda_fsm8.expand_pass_split(xs, states, tables.table, tables.m, tables.mt)
     return _expand_mask(vals[:, 0], vals[:, 1:], n_valid)

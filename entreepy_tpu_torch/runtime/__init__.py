@@ -5,7 +5,8 @@ points the port calls. The shared library is compiled from ``native.cpp``
 with g++ the first time it is needed, into
 ``build/entreepy_tpu_torch/native-<key>.so`` at the root of the checkout
 (beside the CUDA kernels' library), keyed by a hash of the source and the
-CPU model. Without a compiler (or with ``ENTREEPY_NO_NATIVE`` set) every
+CPU model; ``ENTREEPY_NATIVE_LIB=<path>`` loads a prebuilt library instead,
+as it is. Without a compiler (or with ``ENTREEPY_NO_NATIVE`` set) every
 entry point returns None and the callers run their numpy versions: the
 host codec's own fallback, not a device one.
 """
@@ -101,17 +102,26 @@ def _load() -> ctypes.CDLL | None:
         _tried = True
         if os.environ.get("ENTREEPY_NO_NATIVE"):
             return None
-        so = library_path()
-        if not so.exists() and not _build(so):
+        # ENTREEPY_NATIVE_LIB: a prebuilt library loaded as it is (how
+        # tools/sanitize_torch.sh injects its TSAN and ASAN builds); else the
+        # build keyed by source and CPU, compiled here on first use
+        override = os.environ.get("ENTREEPY_NATIVE_LIB")
+        so = Path(override) if override else library_path()
+        if not override and not so.exists() and not _build(so):
             return None
         try:
             lib = ctypes.CDLL(str(so))
         except OSError:
             return None
-        for name, restype, argtypes in _ENTRIES:
-            fn = getattr(lib, name)
-            fn.restype = restype
-            fn.argtypes = argtypes
+        try:
+            for name, restype, argtypes in _ENTRIES:
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+        except AttributeError:
+            if not override:  # the own build lacks an entry point: a fault, not a fallback
+                raise
+            return None
         _lib = lib
         return _lib
 

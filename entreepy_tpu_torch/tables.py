@@ -25,6 +25,7 @@ from .format.fsm8 import (
     split_expand_tensors,
 )
 from .format.huffman import CodeTable
+from .ops.cuda_fsm8 import expand_vector_table
 
 
 @dataclass(frozen=True)
@@ -69,6 +70,9 @@ class ExpandTables:
                 uint8[256, (m+1)S]            ``expand_tensors`` (mt is None)
     m, mt, s    max symbols per byte, tail slots, S = ``fsm.width`` (128 or
                 256) — not the one-pass table's padded live-state count
+    vec         uint8[256, S, P]              the full table as the CUDA
+                expansion reads it (``cuda_fsm8.expand_vector_table``),
+                built once here; None for the split table or off the card
     """
 
     next_state: torch.Tensor
@@ -76,6 +80,7 @@ class ExpandTables:
     m: int
     mt: int | None
     s: int
+    vec: torch.Tensor | None = None
 
 
 def expand_tables(fsm: ByteFsm, device, split: bool) -> ExpandTables:
@@ -86,12 +91,17 @@ def expand_tables(fsm: ByteFsm, device, split: bool) -> ExpandTables:
         t, m, mt = split_expand_tensors(fsm)
     else:
         (t, m), mt = expand_tensors(fsm), None
+    table = torch.from_numpy(t.astype(np.uint8)).to(device)
+    vec = None
+    if not split and table.device.type == "cuda":
+        vec = expand_vector_table(table, m)
     return ExpandTables(
         next_state=next_state_tensor(fsm, device),
-        table=torch.from_numpy(t.astype(np.uint8)).to(device),
+        table=table,
         m=m,
         mt=mt,
         s=fsm.width,
+        vec=vec,
     )
 
 

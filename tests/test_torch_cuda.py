@@ -370,6 +370,47 @@ def test_expand_pass_shapes(k, lanes, kind, m, vector_bytes, dev):
         assert bool((vp[:, 0] >= 16).any())
 
 
+@pytest.mark.parametrize("m", range(1, 9))
+def test_expand_vector_table_pad_written(m, dev):
+    """The kernel loads each vector-table entry whole, pad bytes included,
+    so the relayout writes them: under a poisoned guard band (the table's
+    allocation filled with 0xA5 first) every pad byte is 0."""
+    sk = _sanitize_kernels()
+    rng = np.random.default_rng(m)
+    t_exp = torch.from_numpy(rng.integers(0, 256, (256, (m + 1) * 256), dtype=np.uint8)).to(dev)
+    with sk.Guard(0xA5):
+        vec = cuda_fsm8.expand_vector_table(t_exp, m)
+    assert torch.equal(vec[:, :, : m + 1], t_exp.view(256, m + 1, 256).transpose(1, 2))
+    assert bool((vec[:, :, m + 1:] == 0).all())
+
+
+def _sanitize_kernels():
+    import sys
+
+    sys.path.insert(0, str(DATA.parent.parent / "tools"))
+    import sanitize_kernels
+
+    return sanitize_kernels
+
+
+@pytest.mark.parametrize("kind", ["text", "skewed", "runheavy"])
+def test_expand_pass_prebuilt_vector_table(kind, dev):
+    """The decode's tables carry the vector table, built once per table
+    (pads 0); the kernel given it writes the rows it builds per call, and a
+    vector table of the wrong entry width raises."""
+    t = _full_tables(kind, dev)
+    assert t.vec is not None
+    assert t.vec.shape == (256, t.s, 4 if t.m < 4 else 8 if t.m < 8 else 16)
+    assert torch.equal(t.vec, cuda_fsm8.expand_vector_table(t.table, t.m))
+    rng = np.random.default_rng(3)
+    xs = torch.from_numpy(rng.integers(0, 256, (37, 300), dtype=np.uint8)).to(dev)
+    states = torch.from_numpy(rng.integers(0, t.s, (37, 300)).astype(np.uint8)).to(dev)
+    assert torch.equal(cuda_fsm8.expand_pass(xs, states, t.table, t.m, t.vec),
+                       cuda_fsm8.expand_pass(xs, states, t.table, t.m))
+    with pytest.raises(ValueError, match="vector table"):
+        cuda_fsm8.expand_pass(xs, states, t.table, t.m, t.vec[:, :, :2].contiguous())
+
+
 @pytest.mark.parametrize("lanes", [7, 5958])
 @pytest.mark.parametrize("s", [128, 256])
 @pytest.mark.parametrize("m", range(1, 9))

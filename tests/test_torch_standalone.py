@@ -3,6 +3,7 @@
 against their originals, and the port imported and run alone: no module of
 ``entreepy_tpu`` and no JAX in the process."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -273,3 +274,42 @@ def test_port_imports_no_jax_package():
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith(tcli.HELP_TEXT)
+
+
+def test_native_lib_override(tmp_path):
+    """ENTREEPY_NATIVE_LIB: the port loads that library as it is (how
+    tools/sanitize_torch.sh injects its instrumented builds) and a host
+    round trip runs through it; a path that does not load leaves the host
+    runtime unavailable instead of failing."""
+    so, other = tmp_path / "native_override.so", tmp_path / "no_entry_points.so"
+    (tmp_path / "other.cpp").write_text('extern "C" int et_other(void) { return 0; }\n')
+    not_lib = tmp_path / "not_a_library.so"
+    not_lib.write_text("not a shared library")
+    for src, dst in ((ROOT / "entreepy_tpu_torch" / "runtime" / "native.cpp", so),
+                     (tmp_path / "other.cpp", other)):
+        r = subprocess.run(["g++", "-O1", "-shared", "-fPIC", "-pthread", "-o", str(dst),
+                            str(src)], capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stderr
+    code = (
+        "import os, sys\n"
+        "from entreepy_tpu_torch import runtime\n"
+        "import entreepy_tpu_torch as et\n"
+        "lib = runtime._load()\n"
+        "want = os.environ['ENTREEPY_NATIVE_LIB']\n"
+        "if sys.argv[1] == 'good':\n"
+        "    assert lib is not None and lib._name == want, lib\n"
+        "    data = b'through the injected library ' * 20000\n"
+        "    blob = et.compress(data, backend='host')\n"
+        "    assert et.decompress(blob, backend='host') == data\n"
+        "    assert runtime.histogram(bytearray(data))[ord('t')] == data.count(b't')\n"
+        "else:\n"
+        "    assert lib is None and runtime.available() is False\n"
+        "    assert runtime.histogram(bytearray(b'abc')) is None\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "ENTREEPY_NO_NATIVE"}
+    for case, path in (("good", so), ("bad", tmp_path / "missing.so"), ("bad", not_lib),
+                       ("bad", other)):
+        r = subprocess.run([sys.executable, "-c", code, case], cwd=ROOT, capture_output=True,
+                           text=True, timeout=300, env={**env, "ENTREEPY_NATIVE_LIB": str(path)})
+        assert r.returncode == 0 and r.stdout.strip() == "ok", (case, path, r.stderr)

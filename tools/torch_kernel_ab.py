@@ -28,8 +28,10 @@ inputs made the same way in every turn:
   of the checkout's own two-pass fixed point (``decode8.fsm8_decode``);
   the bound counts the table the function takes (``expand_tensors``'
   layout); where the checkout relays it for its kernel
-  (``cuda_fsm8.expand_vector_table``, inside the timed call), the
-  relayout's own time is reported beside;
+  (``cuda_fsm8.expand_vector_table``), the relayout's own time is
+  reported beside, and whether it lies inside the timed call (per call) or
+  outside it (built once per table, ``ExpandTables.vec``, as the decode
+  does);
 * pack_blocks: the 5.2 MB text in 1 KiB blocks (5,079) and one 32 MiB
   encode tile of the 100 MB text (32,768 blocks), each with its corpus's
   code table;
@@ -257,7 +259,7 @@ def _worker(root: Path, only: set[str]) -> dict:
             return
         tables, _buf, xs, states = two_pass_inputs(blob, split)
         m = tables.m
-        relayout = None
+        relayout, extra = None, ()
         if split:
             args = (xs, states, tables.table, m, tables.mt)
             fn, plain = cuda_fsm8.expand_pass_split, cuda_fsm8.expand_pass_split_plain
@@ -265,10 +267,12 @@ def _worker(root: Path, only: set[str]) -> dict:
             args = (xs, states, tables.table, m)
             fn, plain = cuda_fsm8.expand_pass, cuda_fsm8.expand_pass_plain
             relayout = getattr(cuda_fsm8, "expand_vector_table", None)
-        vk, vp = fn(*args), plain(*args)
+            if getattr(tables, "vec", None) is not None:  # built once per table
+                extra = (tables.vec,)
+        vk, vp = fn(*args, *extra), plain(*args)
         j = torch.arange(m, device=dev)[None, :, None]
         res = out[f"{name} {label}"] = {
-            "ms": kernel_ms(lambda: fn(*args)),
+            "ms": kernel_ms(lambda: fn(*args, *extra)),
             "bound_ms": bound_ms(xs, states, tables.table, vk),
             "max_abs_err": max(max_err(vk[:, 0], vp[:, 0]),
                                max_err(vk[:, 1:], vp[:, 1:], j < (vp[:, 0] & 15)[:, None, :])),
@@ -276,6 +280,7 @@ def _worker(root: Path, only: set[str]) -> dict:
                      f"table {tuple(tables.table.shape)}, {str(vk.dtype)[6:]} rows"}
         if relayout is not None:
             res["relayout_ms"] = kernel_ms(lambda: relayout(tables.table, m))
+            res["relayout_in_call"] = not extra
 
     def compact(label: str, rows, live, sub: int, cap: int):
         ck = cuda_compact.compact_rows(rows, live, sub, cap)
@@ -392,7 +397,9 @@ def main(argv: list[str]) -> int:
             print(f"[ab] turn {i} {name}: {label} ({v['shape']}): {v['ms']:.4f} ms, bound "
                   f"{v['bound_ms']:.4f} ms ({v['bound_ms'] / v['ms']:.1%}), max_abs_err "
                   f"{v['max_abs_err']}"
-                  + (f", of it the table relayout alone {v['relayout_ms']:.4f} ms"
+                  + (f", the table relayout alone {v['relayout_ms']:.4f} ms "
+                     + ("(inside the call)" if v.get("relayout_in_call", True)
+                        else "(once per table, outside the call)")
                      if "relayout_ms" in v else "") + f" | {card}")
     print(card)
     summary = {"card": card, "order": order, "turns": turns}
