@@ -57,7 +57,19 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              backend's; then world 2 on the one card, two spawned processes in
              a gloo group, the 5.2 MB text and 5 MB skewed round trips through
              "onepass" and "host" (.et equal the host backend's, the same
-             fixed-point passes on both ranks, a timeout). Each path runs
+             fixed-point passes on both ranks, a timeout); the wheel
+             (``[install]``, tools/installed_check.py): built with ``pip
+             wheel`` from a copy of the packaging files, so it bundles the
+             portable host runtime and the kernels built for sm_90a,
+             installed with ``pip install --target`` and run from an empty
+             directory with a fresh XDG_CACHE_HOME, CUDA_HOME at nothing and
+             no nvcc or g++ on PATH: the 5.2 MB text through the device
+             backend and the "split" and "fused" routes (.et equal the host
+             backend's, bytes exact, every kernel launched from the bundled
+             library), the ``entreepy-torch`` console script's c/d of the
+             golden file, nothing written to the cache or beside the
+             install, the host codec's time with the portable runtime beside
+             the checkout's -march=native build. Each path runs
              with the launch counts set to 0 and must launch each of its
              kernels; no self-sync host fallback; warm times of every route,
              of auto and of the host backend side by side, and of the sharded
@@ -87,6 +99,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -101,12 +114,13 @@ sys.path.insert(0, str(ROOT))
 
 sys.path.insert(0, str(ROOT / "tools"))
 
+import installed_check as ic  # noqa: E402  (the [install] phase)
 import sanitize_kernels as sk  # noqa: E402  (the [guard] phase)
 import torch_kernel_ab as ab  # noqa: E402  (timing, bounds and corpora, shared)
 from torch_kernel_ab import bound_ms, kernel_ms  # noqa: E402
 
 import entreepy_tpu_torch as et  # noqa: E402
-from entreepy_tpu_torch import _build, api, cli, trace  # noqa: E402
+from entreepy_tpu_torch import _build, api, cli, runtime, trace  # noqa: E402
 from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, decode8  # noqa: E402
 from entreepy_tpu_torch.ops.bitpack import (  # noqa: E402
     grouped_counts_plane, plane_cap_g, plane_sub_for,
@@ -454,6 +468,82 @@ def run_world2(card: str) -> None:
     print(f"[sharded] world 2: both ranks exit 0 in {wall:.1f} s (spawn included) | {card}")
 
 
+def install_phase(card: str, text: bytes, text_blob: bytes) -> None:
+    """[install]: the wheel built from a copy of the packaging files, its
+    bundled libraries required, installed with ``pip --target`` and driven
+    with no compiler in reach (``tools/installed_check.py``): the 5.2 MB
+    text through every device route, every kernel launched from the bundled
+    library; the console script's c/d of the golden file; nothing written
+    to the fresh cache or beside the install."""
+    phase_t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
+        work = Path(tmpdir)
+        t0 = time.perf_counter()
+        wheel = ic.build_wheel(ROOT, work)
+        wheel_s = time.perf_counter() - t0
+        name = _build.library_name()
+        with zipfile.ZipFile(wheel) as z:
+            missing = {f"entreepy_tpu_torch/{name}", "entreepy_tpu_torch/runtime/_native_ext.so"
+                       } - set(z.namelist())
+        require(not missing, f"[install] the wheel lacks {sorted(missing)}")
+        site, cache, cwd = work / "site", work / "cache", work / "cwd"
+        ic.install(wheel, site)
+        cache.mkdir()
+        cwd.mkdir()
+        (work / "text.txt").write_bytes(text)
+        t0 = time.perf_counter()
+        rep = ic.drive(site, cache, cwd, work / "text.txt", work / "out")
+        run_s = time.perf_counter() - t0
+        pkg = site / "entreepy_tpu_torch"
+        loaded = (rep["package"], rep["kernels"], rep["runtime"])
+        require(loaded == (str(pkg / "__init__.py"), str(pkg / name),
+                           str(pkg / "runtime" / "_native_ext.so")),
+                f"[install] loaded {loaded}, not the installed package's bundled libraries")
+        require(rep["modules"] == [], f"[install] the installed port imported {rep['modules']}")
+        require(all(rep["decoded"].values()), f"[install] round trips {rep['decoded']}")
+        for et_name in ("host.et", "device.et"):
+            require((work / "out" / et_name).read_bytes() == text_blob,
+                    f"[install] {et_name} differs from the checkout's host backend's")
+        idle = [k for k in (KERNELS[fn][0] for fn in KERNELS) if rep["launches"].get(k, 0) == 0]
+        require(not idle, f"[install] never launched {idle}")
+        print(f"[install] wheel {wheel.name}: {wheel.stat().st_size} B, built in {wheel_s:.1f} s "
+              f"(pip wheel, nvcc and both g++ builds), bundles {name} and the portable "
+              f"runtime/_native_ext.so | {card}")
+        print(f"[install] installed run (no nvcc or g++ on PATH, CUDA_HOME at nothing, empty "
+              f"cwd, fresh XDG_CACHE_HOME) in {run_s:.1f} s: text 5.2 MB .et == host, round "
+              f"trips exact {rep['decoded']}, kernels from {rep['kernels']}, launches "
+              f"{rep['launches']} | {card}")
+        cli_dir = work / "cli"
+        cli_dir.mkdir()
+        golden = (DATA / "nice.shakespeare.txt").read_bytes()
+        (cli_dir / "m.txt").write_bytes(golden)
+        for args in (["c", "m.txt"], ["d", "m.txt.et"]):
+            r = subprocess.run([str(site / "bin" / "entreepy-torch"), "--backend", "device",
+                                *args], cwd=cli_dir, env=ic.bare_env(site, cache),
+                               capture_output=True, text=True, timeout=300)
+            require(r.returncode == 0, f"[install] entreepy-torch {args}: exit {r.returncode}\n"
+                                       f"{r.stdout}\n{r.stderr}")
+        require((cli_dir / "m.txt.et").read_bytes() == (DATA / "nice.shakespeare.et").read_bytes(),
+                "[install] entreepy-torch c: .et differs from the golden file")
+        require((cli_dir / "decoded_m.txt").read_bytes() == golden,
+                "[install] entreepy-torch d: decoded file differs")
+        written = sorted(str(p) for p in cache.rglob("*"))
+        require(not written, f"[install] the installed port wrote into the cache: {written}")
+        require(not (site / "build").exists(), "[install] the installed port built beside itself")
+    print(f"[install] entreepy-torch --backend device c/d of the golden file: exit 0, .et == "
+          f"golden, decoded == input; the fresh cache empty, no {site.name}/build; phase "
+          f"{time.perf_counter() - phase_t0:.1f} s | {card}")
+    ms = {op: wall_ms(fn, 5) for op, fn in (
+        ("compress", lambda: et.compress(text, backend="host")),
+        ("decompress", lambda: et.decompress(text_blob, backend="host")))}
+    own = Path(runtime._load()._name).name
+    print(f"[install] host codec, text 5.2 MB, ms (warm median of 5): bundled portable "
+          f"_native_ext.so compress {rep['host_ms']['compress']:.3f}, decompress "
+          f"{rep['host_ms']['decompress']:.3f} | the checkout's -march=native {own} compress "
+          f"{ms['compress']:.3f}, decompress {ms['decompress']:.3f} | {card}")
+
+
 def run_path(path: str, drive) -> dict:
     """Drive one main path with every launch count and the host-fallback
     count at 0; require each of the path's kernels launched and no
@@ -550,7 +640,7 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     so = _build.build()
     _build.library()
-    print(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] {so} in {time.perf_counter() - t0:.1f} s")
     for line in so.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
@@ -639,8 +729,10 @@ def main(argv: list[str]) -> int:
              "of single calls)", res)
     print("[kernels] library: the full-table expansion is one advanced-indexing call "
           "(table[byte, j*S + state]); no single PyTorch call computes the others: the "
-          "sync, emit and fused passes are serial per-lane walks, the pack a per-block "
-          "prefix sum and bit scatter, the compaction a per-column stable compaction")
+          "sync, emit and fused passes are serial per-lane walks, the split expansion two "
+          "dependent lookups (its tail slots' column is the first lookup's value & 15) and "
+          "a combine rule, the pack a per-block prefix sum and bit scatter, the compaction "
+          "a per-column stable compaction")
     # 3b. guard: every kernel instantiation, launched and checked inside guard bands
     t0 = time.perf_counter()
     guard_calls = sk.plan(DEV)
@@ -882,6 +974,7 @@ def main(argv: list[str]) -> int:
         launches = {fn: launches[fn] + counts[fn] for fn in KERNELS}
     sharded_beside_device()
     run_world2(card)
+    install_phase(card, text, e2e_blobs["text 5.2 MB"])
 
     # 5. stages of the device backend (and, with ENTREEPY_PROFILE, the device's busy share)
     for name, data in cases:

@@ -2,7 +2,7 @@
 
 Same ``.et`` format and public API as ``entreepy_tpu``; the single-device
 ``device`` backend runs hand-written CUDA kernels for Hopper (``csrc/``),
-built with ``nvcc`` at first use. The host layers are the port's own copies
+bundled in a wheel built with ``nvcc``, else built with ``nvcc`` at first use. The host layers are the port's own copies
 of the JAX package's framework-free modules (``format``, ``runtime`` with its
 C++ host runtime, ``utils``): this package imports nothing of ``entreepy_tpu``
 and never imports JAX.

@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` compile with ``nvcc`` into one shared library with
-a plain C interface, loaded with ``ctypes``: one ``nvcc`` per source, all
-started together, then one link. No PyTorch header is included, so a build
-takes seconds. The library is cached in ``build/entreepy_tpu_torch/``
-at the root of the checkout, keyed by a hash of the sources and flags (the
-same scheme as the host runtime's library, ``runtime``). Nothing
-builds at import: the first kernel launch does.
+a plain C interface, ``kernels-<key>.so``, loaded with ``ctypes``: one ``nvcc``
+per source, all started together, then one link. No PyTorch header is
+included, so a build takes seconds. The key is a hash of the sources and
+flags. :func:`build` takes the first of: the library a wheel bundles beside
+this module (``setup.py`` compiles it with :func:`compile_library` where the
+wheel is built with nvcc), the library built before in :func:`build_dir`, a
+build with nvcc into that directory. Nothing builds at import: the first
+kernel launch does. This module imports only the standard library, so
+``setup.py`` loads it by its file path.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on anything but 0.
@@ -23,8 +26,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-SRC_DIR = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = SRC_DIR.parent.parent / "build" / "entreepy_tpu_torch"
+PKG_DIR = Path(__file__).resolve().parent
+SRC_DIR = PKG_DIR / "csrc"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -lineinfo: line tables for the sanitizer's and profiler's reports (no change to the code)
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
@@ -35,12 +38,36 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
+def build_dir() -> Path:
+    """Where the port builds its libraries at first use: the kernels here,
+    the host runtime in ``runtime``.
+
+    - In a checkout, a package whose parent directory holds this repo's
+      ``pyproject.toml``: ``<checkout>/build/entreepy_tpu_torch/``, which
+      ``.gitignore`` lists.
+    - Anywhere else (an installed package): the per-user cache
+      ``$XDG_CACHE_HOME/entreepy_tpu_torch/`` (``~/.cache`` when unset), so
+      an install never writes beside its site-packages.
+
+    Decided from where the package sits; no variable or option chooses it."""
+    root = PKG_DIR.parent
+    pyproject = root / "pyproject.toml"
+    if pyproject.is_file() and 'name = "entreepy-tpu"' in pyproject.read_text():
+        return root / "build" / "entreepy_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "entreepy_tpu_torch"
+
+
+def _nvcc_fallback() -> Path:
+    return Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+
+
 def nvcc_path() -> str | None:
     """``nvcc`` on PATH, else under CUDA_HOME (default /usr/local/cuda)."""
     found = shutil.which("nvcc")
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    cand = _nvcc_fallback()
     return str(cand) if cand.exists() else None
 
 
@@ -48,13 +75,13 @@ def _sources() -> list[Path]:
     return sorted(p for p in SRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
-def library_path() -> Path:
-    """Cache path of the library built from the current sources and flags."""
+def library_name() -> str:
+    """File name of the library of the current sources and flags."""
     h = hashlib.sha256(" ".join((*NVCC_FLAGS, "-shared")).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
+    return f"kernels-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc(nvcc: str, args: list[str], what: str) -> str:
@@ -66,17 +93,13 @@ def _nvcc(nvcc: str, args: list[str], what: str) -> str:
     return r.stderr
 
 
-def build() -> Path:
-    """Compile the kernels unless the cache holds them. ``nvcc``'s ptxas
-    report (registers, shared memory, spills per kernel) is kept beside the
-    library as ``<name>.log``. Raises with nvcc's stderr on failure."""
-    so = library_path()
-    if so.exists():
-        return so
-    nvcc = nvcc_path()
-    if nvcc is None:
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_library(so: Path, nvcc: str) -> Path:
+    """Compile the kernels with ``nvcc`` into ``so`` through private
+    temporary files, so processes building at once never load a
+    half-written library. ``nvcc``'s ptxas report (registers, shared memory,
+    spills per kernel) is kept beside it as ``<name>.log``. Raises with
+    nvcc's stderr on failure."""
+    so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
     sources = [p for p in _sources() if p.suffix == ".cu"]
     objs = [so.with_name(f"{so.stem}.{os.getpid()}.{p.stem}.o") for p in sources]
@@ -95,8 +118,32 @@ def build() -> Path:
     return so
 
 
+def build() -> Path:
+    """Path of the kernel library of the current sources and flags, the
+    first of:
+
+    1. the library a wheel bundles in the package, of the current key only,
+       so a library of other sources is never loaded;
+    2. the library built before in :func:`build_dir`;
+    3. a build with ``nvcc`` into :func:`build_dir`.
+
+    Raises ``RuntimeError`` naming every place it looked when there is no
+    library and no ``nvcc``; nothing else takes the kernels' place."""
+    name = library_name()
+    bundled, built = PKG_DIR / name, build_dir() / name
+    for so in (bundled, built):
+        if so.exists():
+            return so
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError(
+            f"no kernel library {name}: not bundled in {PKG_DIR}, not built in "
+            f"{built.parent}, and no nvcc to build it (not on PATH, not {_nvcc_fallback()})")
+    return compile_library(built, nvcc)
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (:func:`build` on first call)."""
     global _lib
     with _lock:
         if _lib is None:

@@ -1,12 +1,18 @@
 """C++ host runtime bindings (ctypes) of the port's host codec.
 
 The port's own copy of the JAX package's runtime, reduced to the entry
-points the port calls. The shared library is compiled from ``native.cpp``
-with g++ the first time it is needed, into
-``build/entreepy_tpu_torch/native-<key>.so`` at the root of the checkout
-(beside the CUDA kernels' library), keyed by a hash of the source and the
-CPU model; ``ENTREEPY_NATIVE_LIB=<path>`` loads a prebuilt library instead,
-as it is. Without a compiler (or with ``ENTREEPY_NO_NATIVE`` set) every
+points the port calls. The library loaded is the first of:
+
+1. ``ENTREEPY_NATIVE_LIB=<path>``, a prebuilt library loaded as it is;
+2. ``_native_ext.so`` beside ``native.cpp``, the portable build a wheel
+   bundles (``setup.py``: ``-O3 -mtune=generic``), which needs no compiler;
+3. ``native-<key>.so`` in ``_build.build_dir()`` (``build/entreepy_tpu_torch/``
+   in a checkout, beside the CUDA kernels' library; the per-user cache when
+   installed), keyed by a hash of the source and the CPU model, compiled
+   from ``native.cpp`` with ``g++ -march=native`` the first time it is
+   needed.
+
+Without a library and a compiler (or with ``ENTREEPY_NO_NATIVE`` set) every
 entry point returns None and the callers run their numpy versions: the
 host codec's own fallback, not a device one.
 """
@@ -22,9 +28,11 @@ from pathlib import Path
 
 import numpy as np
 
+from .._build import build_dir
+
 _HERE = Path(__file__).resolve().parent
 _SRC = _HERE / "native.cpp"
-BUILD_DIR = _HERE.parent.parent / "build" / "entreepy_tpu_torch"
+_EXT = _HERE / "_native_ext.so"  # the portable build a wheel bundles (setup.py)
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _tried = False
@@ -70,7 +78,7 @@ def library_path() -> Path:
     except OSError:
         pass
     key = hashlib.sha256(_SRC.read_bytes() + cpu.encode()).hexdigest()[:16]
-    return BUILD_DIR / f"native-{key}.so"
+    return build_dir() / f"native-{key}.so"
 
 
 def _build(dst: Path) -> bool:
@@ -94,35 +102,47 @@ def _build(dst: Path) -> bool:
         tmp.unlink(missing_ok=True)
 
 
+def _open() -> ctypes.CDLL | None:
+    """The library by the order above with its entry points declared, or
+    None. A bundled or own build that does not load or lacks an entry point
+    raises: it is the package's own, not something to fall back from."""
+    if os.environ.get("ENTREEPY_NO_NATIVE"):
+        return None
+    # ENTREEPY_NATIVE_LIB is how tools/sanitize_torch.sh injects its TSAN and
+    # ASAN builds; a path there that does not load leaves the runtime off
+    override = os.environ.get("ENTREEPY_NATIVE_LIB")
+    if override:
+        so = Path(override)
+    elif _EXT.exists():
+        so = _EXT
+    else:
+        so = library_path()
+        if not so.exists() and not _build(so):
+            return None
+    try:
+        lib = ctypes.CDLL(str(so))
+    except OSError:
+        if so == _EXT:
+            raise
+        return None
+    try:
+        for name, restype, argtypes in _ENTRIES:
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+    except AttributeError:
+        if not override:
+            raise
+        return None
+    return lib
+
+
 def _load() -> ctypes.CDLL | None:
     global _lib, _tried
     with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        if os.environ.get("ENTREEPY_NO_NATIVE"):
-            return None
-        # ENTREEPY_NATIVE_LIB: a prebuilt library loaded as it is (how
-        # tools/sanitize_torch.sh injects its TSAN and ASAN builds); else the
-        # build keyed by source and CPU, compiled here on first use
-        override = os.environ.get("ENTREEPY_NATIVE_LIB")
-        so = Path(override) if override else library_path()
-        if not override and not so.exists() and not _build(so):
-            return None
-        try:
-            lib = ctypes.CDLL(str(so))
-        except OSError:
-            return None
-        try:
-            for name, restype, argtypes in _ENTRIES:
-                fn = getattr(lib, name)
-                fn.restype = restype
-                fn.argtypes = argtypes
-        except AttributeError:
-            if not override:  # the own build lacks an entry point: a fault, not a fallback
-                raise
-            return None
-        _lib = lib
+        if _lib is None and not _tried:
+            _lib = _open()  # raises again on the next call when it raised
+            _tried = True
         return _lib
 
 
