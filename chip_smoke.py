@@ -69,7 +69,17 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              library), the ``entreepy-torch`` console script's c/d of the
              golden file, nothing written to the cache or beside the
              install, the host codec's time with the portable runtime beside
-             the checkout's -march=native build. Each path runs
+             the checkout's -march=native build; the bench (``[bench]``):
+             ``python -m entreepy_tpu_torch.bench`` as a user runs it, each
+             command in a process of its own (BENCH_COMMANDS: the headline at
+             5.2 MB, ``scale`` at 5 MB over the four corpora, the three
+             backends and every route with ``--stages``, ``scale`` at 100 MB
+             text, ``weak`` over worlds 1 and 2): exit 0, every row's .et equal
+             to the host backend's and its round trip exact, the headline's
+             ``cuda_*`` probe figures positive with each bound share at most
+             100 %, all seven kernels launched by the headline's device rows
+             and by the 5 MB sweep's, no module of JAX or of entreepy_tpu in
+             the bench's process; every number beside the card. Each path runs
              with the launch counts set to 0 and must launch each of its
              kernels; no self-sync host fallback; warm times of every route,
              of auto and of the host backend side by side, and of the sharded
@@ -116,10 +126,10 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 import installed_check as ic  # noqa: E402  (the [install] phase)
 import sanitize_kernels as sk  # noqa: E402  (the [guard] phase)
-import torch_kernel_ab as ab  # noqa: E402  (timing, bounds and corpora, shared)
-from torch_kernel_ab import bound_ms, kernel_ms  # noqa: E402
+import torch_kernel_ab as ab  # noqa: E402  (the kernels' comparisons, shared)
 
 import entreepy_tpu_torch as et  # noqa: E402
+from entreepy_tpu_torch.bench import bound_ms, kernel_ms, make_corpus  # noqa: E402
 from entreepy_tpu_torch import _build, api, cli, runtime, trace  # noqa: E402
 from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, decode8  # noqa: E402
 from entreepy_tpu_torch.ops.bitpack import (  # noqa: E402
@@ -181,7 +191,7 @@ WORLD2_KERNELS = ("sync_pass", "fused_pass", "emit_pass", "pack_blocks", "compac
 
 
 def corpus(kind: str, n_bytes: int) -> bytes:
-    return ab.corpus(ROOT, kind, n_bytes)
+    return make_corpus(kind, n_bytes)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -542,6 +552,126 @@ def install_phase(card: str, text: bytes, text_blob: bytes) -> None:
           f"_native_ext.so compress {rep['host_ms']['compress']:.3f}, decompress "
           f"{rep['host_ms']['decompress']:.3f} | the checkout's -march=native {own} compress "
           f"{ms['compress']:.3f}, decompress {ms['decompress']:.3f} | {card}")
+
+
+# The [bench] phase: the port's bench, each command in a process of its own.
+BENCH_COMMANDS = (
+    ("headline", ()),
+    ("scale 5 MB", ("scale", "--sizes", "5", "--corpora", "text,random,skewed,runheavy",
+                    "--backends", "auto,host,device", "--routes", "onepass,split,fused,host",
+                    "--stages")),
+    ("scale 100 MB", ("scale", "--sizes", "100", "--corpora", "text",
+                      "--backends", "auto,host,device")),
+    ("weak", ("weak", "--worlds", "1,2", "--per-rank-mb", "2")),
+)
+BENCH_TIMEOUT_S = 600
+BENCH_PROBE = ("cuda_full_ms", "cuda_pass_ms", "cuda_decode_pass_MBps", "cuda_fused_pass_ms",
+               "cuda_pack_pass_ms", "cuda_pack_MBps", "cuda_decode_e2e_ms",
+               "cuda_decode_e2e_MBps", "cuda_encode_e2e_ms", "cuda_encode_e2e_MBps",
+               "cuda_pass_bound_pct", "cuda_fused_pass_bound_pct", "cuda_pack_pass_bound_pct")
+
+
+def _stats(s: dict) -> str:
+    return f"{s['median_ms']:.3f} ms ({s['min_ms']:.3f}-{s['max_ms']:.3f}, n {s['n']})"
+
+
+def bench_headline(line: dict, card: str) -> None:
+    """The headline line: bench.py's keys, every row exact, the probe's
+    figures present and positive, each bound share at most 100 %, all seven
+    kernels launched by its device rows."""
+    require(line.get("metric") == "decode_throughput_5MB" and line.get("unit") == "MB/s"
+            and line["value"] > 0 and line["vs_baseline"] > 0, f"[bench] headline {line}")
+    require(line["device"]["platform"] == "gpu"
+            and line["device"]["kind"] == torch.cuda.get_device_name(0),
+            f"[bench] headline device {line['device']}")
+    bad = [r for r in line["rows"] if not r["ok"]]
+    require(not bad, f"[bench] headline rows not exact: {bad}")
+    missing = [k for k in BENCH_PROBE if not line.get(k, 0) > 0]
+    require(not missing, f"[bench] headline probe fields missing or not positive: {missing}")
+    over = {k: line[k] for k in BENCH_PROBE if k.endswith("_bound_pct") and line[k] > 100}
+    require(not over, f"[bench] bound shares above 100 %: {over}")
+    idle = [k for k, n in line["launches"].items() if n == 0]
+    require(not idle and len(line["launches"]) == len(KERNELS),
+            f"[bench] headline rows never launched {idle}")
+    print(f"[bench] headline: {line['value']:.3f} MB/s decode through auto "
+          f"({line['auto_backend']}; best of {line['headline_calls']['decompress']['n']}), "
+          f"vs_baseline {line['vs_baseline']:.1f}, ratio {line['ratio']:.4f}, encode "
+          f"{line['encode_MBps']:.3f} MB/s | {card}")
+    for r in line["rows"]:
+        print(f"[bench] headline row {r['backend']} {r['op']}"
+              + (f" expand={r['expand']}" if r["expand"] else "")
+              + f": {_stats(r)}, {r['MBps']:.3f} MB/s, peak {r['peak_bytes']} B | {card}")
+    print("[bench] headline probe: " + ", ".join(f"{k} {line[k]:.6g}" for k in BENCH_PROBE)
+          + f" | {card}")
+    print(f"[bench] headline device rows' launches: {line['launches']} | {card}")
+
+
+def bench_scale(rows: list[dict], label: str, card: str) -> None:
+    """Every row's .et equal to the host backend's and round trip exact;
+    the device rows of all routes launch all seven kernels."""
+    bad = [(r["corpus"], r["backend"], r["route"]) for r in rows
+           if not (r["et_equals_host"] and r["round_trip"])]
+    require(not bad, f"[bench] {label}: rows not exact: {bad}")
+    launched = {k: sum(r["launches"][k] for r in rows) for k in rows[0]["launches"]}
+    routes = {r["route"] for r in rows if r["backend"] == "device"}
+    if routes == set(decode8.EXPAND_MODES):
+        idle = [k for k, n in launched.items() if n == 0]
+        require(not idle, f"[bench] {label}: the device rows never launched {idle}")
+    for r in rows:
+        print(f"[bench] {label} {r['corpus']} {r['bytes']} B {r['backend']}"
+              + (f" expand={r['route']}" if r["route"] else "")
+              + (f" (auto picked {r['picked']})" if "picked" in r else "")
+              + f": ratio {r['ratio']:.4f}, compress {_stats(r['encode'])} "
+              f"{r['encode_MBps']:.3f} MB/s peak {r['encode']['peak_bytes']} B, decompress "
+              f"{_stats(r['decode'])} {r['decode_MBps']:.3f} MB/s peak "
+              f"{r['decode']['peak_bytes']} B | {card}")
+        for op, st in r.get("stages", {}).items():
+            if st:
+                print(f"[bench] {label} {r['corpus']} {r['backend']} {r['route'] or ''} "
+                      f"{op} stages ms: " + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+                      + f" | {card}")
+    print(f"[bench] {label}: launches over its rows {launched} | {card}")
+
+
+def bench_weak(rows: list[dict], card: str) -> None:
+    bad = [r["processes"] for r in rows if not (r["et_equals_host"] and r["round_trip"])
+           or not (r["weak_eff_encode"] > 0 and r["weak_eff_decode"] > 0)]
+    require(len(rows) == 2 and not bad, f"[bench] weak: worlds {bad} of {len(rows)} rows")
+    for r in rows:
+        print(f"[bench] weak world {r['processes']} ({r['corpus_MB']} MB, pinned "
+              f"{r['pinned']}): encode {r['encode_s']:.6f} s, decode {r['decode_s']:.6f} s "
+              f"(rank 0, median of {r['decode']['n']}), efficiency encode "
+              f"{r['weak_eff_encode']:.4f}, decode {r['weak_eff_decode']:.4f}, rank 0 "
+              f"launches {r['launches']} | {card}")
+
+
+def bench_phase(card: str) -> None:
+    """[bench]: ``python -m entreepy_tpu_torch.bench`` as a user runs it, each
+    of BENCH_COMMANDS in a process of its own: exit 0, every JSON row's
+    correctness fields, the headline's probe, the kernels launched, and no
+    module of JAX or of ``entreepy_tpu`` in the bench's process."""
+    phase_t0 = time.perf_counter()
+    for label, args in BENCH_COMMANDS:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "entreepy_tpu_torch.bench", *args], cwd=ROOT,
+                           capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        require(r.returncode == 0, f"[bench] {label}: exit {r.returncode}\n{r.stdout[-2000:]}"
+                                   f"\n{r.stderr[-4000:]}")
+        require("[bench] modules of jax or entreepy_tpu imported: []" in r.stderr,
+                f"[bench] {label}: the bench imported JAX or entreepy_tpu:\n{r.stderr[-2000:]}")
+        rows = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+        require(bool(rows), f"[bench] {label}: no JSON row")
+        if label == "headline":
+            require(len(rows) == 1, f"[bench] headline: {len(rows)} JSON lines")
+            bench_headline(rows[0], card)
+        elif label == "weak":
+            bench_weak(rows, card)
+        else:
+            bench_scale(rows, label, card)
+        print(f"[bench] {label} (python -m entreepy_tpu_torch.bench {' '.join(args)}): exit 0, "
+              f"{len(rows)} JSON rows, no module of JAX or entreepy_tpu, {secs:.1f} s | {card}")
+    print(f"[bench] phase {time.perf_counter() - phase_t0:.1f} s | {card}")
 
 
 def run_path(path: str, drive) -> dict:
@@ -975,6 +1105,7 @@ def main(argv: list[str]) -> int:
     sharded_beside_device()
     run_world2(card)
     install_phase(card, text, e2e_blobs["text 5.2 MB"])
+    bench_phase(card)
 
     # 5. stages of the device backend (and, with ENTREEPY_PROFILE, the device's busy share)
     for name, data in cases:

@@ -50,12 +50,22 @@ def build_dir() -> Path:
       an install never writes beside its site-packages.
 
     Decided from where the package sits; no variable or option chooses it."""
-    root = PKG_DIR.parent
-    pyproject = root / "pyproject.toml"
-    if pyproject.is_file() and 'name = "entreepy-tpu"' in pyproject.read_text():
+    root = checkout_root()
+    if root is not None:
         return root / "build" / "entreepy_tpu_torch"
     cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
     return Path(cache) / "entreepy_tpu_torch"
+
+
+def checkout_root() -> Path | None:
+    """The root of the checkout this package sits in (its parent directory,
+    when that holds this repo's ``pyproject.toml``), else None: an
+    installed package."""
+    root = PKG_DIR.parent
+    pyproject = root / "pyproject.toml"
+    if pyproject.is_file() and 'name = "entreepy-tpu"' in pyproject.read_text():
+        return root
+    return None
 
 
 def _nvcc_fallback() -> Path:

@@ -10,6 +10,9 @@ pack words are compared where the byte's count or the ``emitted`` flag makes
 them live.
 """
 
+import json
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -607,3 +610,88 @@ def test_tiled_encode(dev):
     out = encode.compress_device(data, device=dev, block_bytes=256, tile_blocks=4)
     assert out == et.compress(data, backend="host")
     assert cuda_pack.pack_blocks.launches - before == -(-len(data) // 1024)
+
+
+# --- the fuzz twin (tests/test_torch_fuzz.py) on the card ---
+
+FUZZ_SEEDS = {"text": 11, "random": 12, "skewed": 13, "runheavy": 14}
+ROUTES = ("onepass", "split", "fused", "host")
+
+
+def _outcome(fn):
+    try:
+        return fn()
+    except ValueError:
+        return None
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("kind", ["text", "random", "skewed", "runheavy"])
+def test_fuzz_card(kind, route, dev):
+    """The bench's corpus families at random sizes through the device and
+    sharded (one rank) backends on the card: the host codec's .et, exact
+    round trips; an overlong stream rejected; a relaxed single-symbol file
+    round-trips."""
+    from entreepy_tpu_torch.bench.corpus import make_corpus
+
+    rng = np.random.default_rng(FUZZ_SEEDS[kind])
+    for _ in range(2):
+        data = make_corpus(kind, int(rng.integers(5_000, 30_000)))
+        ref = et.compress(data, backend="host")
+        for backend in ("device", "sharded"):
+            assert et.compress(data, backend=backend) == ref
+            assert et.decompress(ref, backend=backend, expand=route) == data
+            with pytest.raises(ValueError):
+                et.decompress(ref + b"\x00" * 4, backend=backend, expand=route)
+    relaxed = et.compress(b"a" * 1000, strict=False, backend="host")
+    assert decode8.decompress_device(relaxed, device=dev, chunk_bytes=16,
+                                     expand=route) == b"a" * 1000
+
+
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("kind", ["skewed", "runheavy"])
+def test_fuzz_corruption_card(kind, route, dev):
+    """Single-bit corruptions: accepted or rejected on the card as the host
+    backend does it, and an accepted one decodes to the host's bytes."""
+    from entreepy_tpu_torch.bench.corpus import make_corpus
+    from entreepy_tpu_torch.format import parse_header
+
+    rng = np.random.default_rng(FUZZ_SEEDS[kind] + 100)
+    good = et.compress(make_corpus(kind, 10_000), backend="host")
+    hdr = parse_header(good)
+    for _ in range(4):
+        pos = int(rng.integers(hdr.body_start + 2, len(good) - 8))
+        bad = good[:pos] + bytes([good[pos] ^ (1 << int(rng.integers(8)))]) + good[pos + 1:]
+        host = _outcome(lambda: et.decompress(bad, backend="host"))
+        for backend in ("device", "sharded"):
+            assert _outcome(lambda: et.decompress(bad, backend=backend, expand=route)) == host
+
+
+# --- the bench (tests/test_torch_bench.py) on the card ---
+
+def _bench(*argv: str) -> tuple[list[dict], str]:
+    r = subprocess.run([sys.executable, "-m", "entreepy_tpu_torch.bench", *argv],
+                       cwd=DATA.parent.parent, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")], r.stderr
+
+
+def test_bench_headline_card(dev):
+    """The headline at 1 MB on the card: its probe's figures positive, each
+    bound share at most 100 %, every kernel launched by its device rows."""
+    (line,), err = _bench("--bytes", "1000000")
+    assert line["device"]["platform"] == "gpu" and line["corpus_bytes"] == 1_000_000
+    probe = {k: v for k, v in line.items() if k.startswith("cuda_")}
+    assert len(probe) == 13 and all(v > 0 for v in probe.values())
+    assert all(v <= 100 for k, v in probe.items() if k.endswith("_bound_pct"))
+    assert all(r["ok"] for r in line["rows"]) and all(line["launches"].values())
+    assert "[bench] modules of jax or entreepy_tpu imported: []" in err
+
+
+def test_bench_weak_card(dev):
+    """Worlds 1 and 2 on cuda:0 (a gloo group), the .et and round trips exact."""
+    rows, _ = _bench("weak", "--worlds", "1,2", "--per-rank-mb", "0.5")
+    assert [r["processes"] for r in rows] == [1, 2]
+    for r in rows:
+        assert r["et_equals_host"] and r["round_trip"] and r["weak_eff_decode"] > 0
+        assert r["launches"]["sync_pass"] > 0 and r["launches"]["pack_blocks"] > 0

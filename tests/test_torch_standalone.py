@@ -255,25 +255,39 @@ def test_runtime_builds_under_the_port():
     assert so.name.startswith("native-") and trt.available() and so.exists()
 
 
+# Modules of the port the walk below imports: 29 before the bench, and the
+# bench package with its seven modules.
+PORT_MODULES = 29 + 8
+
+
 def test_port_imports_no_jax_package():
-    """Every module of the port, a host round trip and the CLI's help leave
-    no module of entreepy_tpu (nor JAX) in the process."""
+    """Every module of the port but the ``__main__`` ones (which run their
+    entry point when imported), a host round trip and the CLI's help leave
+    no module of entreepy_tpu (nor JAX) in the process. The script's last
+    line counts the modules it imported, so a script that ends early fails."""
     code = (
         "import pkgutil, sys\n"
         "import entreepy_tpu_torch as et\n"
+        "n = 0\n"
         "for m in pkgutil.walk_packages(et.__path__, 'entreepy_tpu_torch.'):\n"
-        "    __import__(m.name)\n"
+        "    if m.name.rsplit('.', 1)[-1] != '__main__':\n"
+        "        __import__(m.name)\n"
+        "        n += 1\n"
         "from entreepy_tpu_torch import cli\n"
         "data = b'a round trip on the host codec' * 50\n"
         "assert et.decompress(et.compress(data, backend='host'), backend='host') == data\n"
         "assert cli.main(['-h']) == 0\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('entreepy_tpu', 'jax'))\n"
         "assert not bad, bad\n"
+        "print(f'imported {n} modules')\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith(tcli.HELP_TEXT)
+    last = r.stdout.splitlines()[-1].split()
+    assert last[0] == "imported" and last[2] == "modules", r.stdout[-200:]
+    assert int(last[1]) >= PORT_MODULES
 
 
 def test_native_lib_override(tmp_path):

@@ -57,67 +57,38 @@ card; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
-import statistics
 import subprocess
 import sys
 from pathlib import Path
 
-HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s (NVIDIA's data sheet)
 MB = 1_000_000
 DEVICE = "cuda"
 TEXT_BYTES = 5_200_000  # bench.py's text corpus
+BENCH = Path(__file__).resolve().parent.parent / "entreepy_tpu_torch" / "bench"
+
+
+def _own(name: str):
+    """Module ``name`` of this checkout's ``entreepy_tpu_torch/bench``, loaded
+    by its path: every turn times and makes its inputs with the same code,
+    whichever checkout it imports as ``entreepy_tpu_torch``."""
+    spec = importlib.util.spec_from_file_location(f"_ab_bench_{name}", BENCH / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_timing, _corpus = _own("timing"), _own("corpus")
+HBM_BYTES_PER_MS, bound_ms, kernel_ms = (_timing.HBM_BYTES_PER_MS, _timing.bound_ms,
+                                         _timing.kernel_ms)
 
 
 def corpus(root: Path, kind: str, n: int) -> bytes:
-    """The corpus families of benchmarks/scale.py (the same generators, seed
+    """The corpus families of benchmarks/scale.py (``bench.corpus``, seed
     1234), the text one from the checkout at ``root``."""
-    import numpy as np
-
-    rng = np.random.default_rng(1234)
-    if kind == "text":
-        src = (root / "tests" / "data" / "a_midsummer_nights_dream.txt").read_bytes()
-        return (src * (-(-n // len(src))))[:n]
-    if kind == "random":
-        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
-    if kind == "skewed":
-        p = 1.0 / np.arange(1, 257) ** 1.3
-        return rng.choice(256, size=n, p=p / p.sum()).astype(np.uint8).tobytes()
-    if kind == "runheavy":
-        unit = b"a" * 4096 + rng.integers(0, 256, 256, dtype=np.uint8).tobytes()
-        return (unit * (-(-n // len(unit))))[:n]
-    raise ValueError(kind)
-
-
-def kernel_ms(fn, launches: int = 50, runs: int = 5) -> float:
-    """Device time of one launch of ``fn()`` in ms: ``launches``
-    back-to-back launches between one CUDA-event pair, divided by the count;
-    median of ``runs`` such runs after one warm-up call. A device-side sleep
-    queued first keeps the queue full while the host enqueues them, so the
-    host's per-launch cost (checks, ctypes) opens no gaps between kernels."""
-    import torch
-
-    fn()
-    times = []
-    for _ in range(runs):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        a.record()
-        for _ in range(launches):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / launches)
-    return statistics.median(times)
-
-
-def bound_ms(*tensors) -> float:
-    """Least time to move ``tensors`` through device memory once (the inputs
-    read, the outputs written), at the card's published rate. Integer work
-    per byte is a few table reads, so bytes, not operations, bound these
-    kernels."""
-    return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_MS
+    return _corpus.make_corpus(kind, n, root / _corpus.FIXTURE)
 
 
 def max_err(a, b, live=None) -> int:
