@@ -12,8 +12,9 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 2. build   — compile the kernels of entreepy_tpu_torch/csrc with nvcc;
 3. kernels — each of the seven kernels against its plain PyTorch version at
              the shapes of the 5.2 MB text corpus (and of the skewed and
-             run-heavy corpora for the unpacked fused pass, the emit pass's
-             256-state table and the expansions' wider tables; the
+             run-heavy corpora for the unpacked fused pass, the sync pass's
+             and the emit pass's 256-state tables and the expansions' wider
+             tables; the
              compaction also on each expansion's rows, as the two-pass
              routes give them), bit-identical on every live value;
              the sync and fused passes also at a full 65,536-lane tile of the
@@ -57,7 +58,22 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              backend's; then world 2 on the one card, two spawned processes in
              a gloo group, the 5.2 MB text and 5 MB skewed round trips through
              "onepass" and "host" (.et equal the host backend's, the same
-             fixed-point passes on both ranks, a timeout); the wheel
+             fixed-point passes on both ranks, a timeout); the JAX
+             package's largest configurations (``[large]``,
+             tools/large_check.py): 10^9 B of text (enwik9 scale) and
+             2^31 + 2^27 B of random bytes (a body past 2 GiB, required)
+             through the host codec, the device backend's tiled compress and
+             one-pass decompress, its untiled "host" route, the sharded
+             backend at world 1 (a one-rank NCCL group; the random body takes
+             the tiled escape) and, at the random body, "split" and "fused"
+             refused; every result exact, one line per call with its ms,
+             peak device memory, peak RSS, tiles and launches, and the tiled
+             calls' peaks within 1.10x those of the 100 MB text; then, outside
+             the path's launch counts, each of its kernels against its plain
+             version at the shapes those calls gave it
+             (``large_kernel_checks``: the first decode and encode tiles
+             whole, the untiled passes, pack and compaction on their last
+             65,536 lanes or blocks, where the offsets pass 2^31); the wheel
              (``[install]``, tools/installed_check.py): built with ``pip
              wheel`` from a copy of the packaging files, so it bundles the
              portable host runtime and the kernels built for sm_90a,
@@ -102,6 +118,7 @@ last line).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -125,6 +142,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
 import installed_check as ic  # noqa: E402  (the [install] phase)
+import large_check as lg  # noqa: E402  (the [large] phase)
 import sanitize_kernels as sk  # noqa: E402  (the [guard] phase)
 import torch_kernel_ab as ab  # noqa: E402  (the kernels' comparisons, shared)
 
@@ -179,6 +197,8 @@ PATH_KERNELS = {
             cuda_compact.compact_rows),
     # the sharded backend at world 1: every route, so all seven kernels
     "sharded": tuple(KERNELS),
+    # the JAX package's largest configurations (tools/large_check.py)
+    "large": lg.PATH_KERNELS,
 }
 # World 1 of the sharded phase: each corpus through these routes.
 SHARDED_CASES = (("text 5.2 MB", decode8.EXPAND_MODES), ("skewed 5 MB", ("onepass", "fused")))
@@ -188,6 +208,8 @@ WORLD2_CASES = (("text 5.2 MB", "text", 5_200_000), ("skewed 5 MB", "skewed", 5 
 WORLD2_ROUTES = ("onepass", "host")
 WORLD2_TIMEOUT_S = 400
 WORLD2_KERNELS = ("sync_pass", "fused_pass", "emit_pass", "pack_blocks", "compact_rows")
+# [large]: lanes or blocks of an untiled shape held against the plain version
+LARGE_WINDOW = 65_536
 
 
 def corpus(kind: str, n_bytes: int) -> bytes:
@@ -364,7 +386,15 @@ def fused_check(xs, tables, n_valid, lanes, packed: bool):
     entries = torch.cat([exits.new_zeros(1), exits[:-1]])
     args = (xs, tables.fused, entries, m, mt, s, packed, n_valid)
     vk, xk = cuda_fsm8.fused_pass(*args)
-    vp, xp = cuda_fsm8.fused_pass_plain(*args)
+    err = fused_err(vk, xk, *cuda_fsm8.fused_pass_plain(*args), m, packed)
+    ms = kernel_ms(lambda: cuda_fsm8.fused_pass(*args))
+    plain_ms = cuda_ms(lambda: cuda_fsm8.fused_pass_plain(*args), 3)
+    return err, ms, plain_ms, bound_ms(xs, tables.fused, entries, vk, xk), None
+
+
+def fused_err(vk, xk, vp, xp, m: int, packed: bool) -> int:
+    """The fused kernel's rows and exits against the plain version's:
+    row0/count bytes and exits exact, symbol slots where live (j < count)."""
     j = torch.arange(m, device=DEV)[None, :, None]
     if packed:
         row0k, row0p = vk >> (8 * m), vp >> (8 * m)
@@ -374,15 +404,127 @@ def fused_check(xs, tables, n_valid, lanes, packed: bool):
     else:
         row0k, row0p = vk[:, 0], vp[:, 0]
         slots_k, slots_p = vk[:, 1:], vp[:, 1:]
-    err = max(max_err(row0k, row0p), max_err(xk, xp),
-              max_err(slots_k, slots_p, j < (row0p & 15)[:, None, :]))
-    ms = kernel_ms(lambda: cuda_fsm8.fused_pass(*args))
-    plain_ms = cuda_ms(lambda: cuda_fsm8.fused_pass_plain(*args), 3)
-    return err, ms, plain_ms, bound_ms(xs, tables.fused, entries, vk, xk), None
+    return max(max_err(row0k, row0p), max_err(xk, xp),
+               max_err(slots_k, slots_p, j < (row0p & 15)[:, None, :]))
+
+
+def timed(fn):
+    """(fn(), its device time in ms: one call between a CUDA-event pair)."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def tail_window(n: int) -> slice:
+    """The last LARGE_WINDOW of ``n`` lanes or blocks: where a kernel's
+    offsets are highest (past 2^31 at [large]'s random configuration)."""
+    return slice(max(0, n - LARGE_WINDOW), n)
+
+
+def large_kernel_checks(data: bytes, blob: bytes) -> list:
+    """Each kernel of the [large] path against its plain version at the
+    shapes its calls gave it, for one configuration (``data`` and its
+    ``.et``): the sync and fused passes on the tiled decode's first tile,
+    and the pack and the compaction on the tiled encode's, whole; then the
+    untiled shapes, each kernel launched on all of them and compared on the
+    last LARGE_WINDOW lanes or blocks (the plain versions loop in Python):
+    the host route's sync and emit passes over the whole body, the
+    untiled sharded decode's fused pass where the body stays below the 2
+    GiB escape, and the untiled sharded compress's pack over every block
+    and compaction of its words. Kernel times are at the full shape, plain
+    times on what was compared. Returns [(wrapper, label, (err, ms,
+    plain_ms, bound_ms, None))]."""
+    out = []
+    tables, buf = decode_tables_for(blob, DEV)
+    ns, m, packed = tables.next_state, tables.m, tables.m <= 3
+    tile = buf[: decode8.TILE_LANES * decode8.DEFAULT_CHUNK_BYTES]
+    xs, lanes = body_xs(tile)
+    out.append((cuda_fsm8.sync_pass, f"the first {lanes}-lane decode tile, whole",
+                sync_check(xs, ns)))
+    out.append((cuda_fsm8.fused_pass, f"{'packed' if packed else 'unpacked'} m={m}, the same "
+                "tile", fused_check(xs, tables, tile.size, lanes, packed)))
+
+    xs, lanes = body_xs(buf)
+    k, win = xs.shape[0], tail_window(lanes)
+    at = f"untiled, {lanes} lanes x {k} B; lanes {win.start}-{win.stop - 1} compared"
+    sx = xs[-min(decode8.SYNC_WINDOW, k):]
+    zeros = torch.zeros(lanes, dtype=torch.int32, device=DEV)
+    guess = cuda_fsm8.sync_pass(sx, ns, zeros)
+    plain, plain_ms = timed(lambda: cuda_fsm8.sync_pass_plain(sx[:, win], ns, zeros[win]))
+    out.append((cuda_fsm8.sync_pass, at, (
+        max_err(guess[win], plain), kernel_ms(lambda: cuda_fsm8.sync_pass(sx, ns, zeros), 3, 3),
+        plain_ms, bound_ms(sx, ns, zeros, guess), None)))
+    entries = torch.cat([zeros[:1], guess[:-1]])
+    sk, xk = cuda_fsm8.emit_pass(xs, ns, entries)
+    (sp, xp), plain_ms = timed(lambda: cuda_fsm8.emit_pass_plain(xs[:, win], ns, entries[win]))
+    out.append((cuda_fsm8.emit_pass, f"{at} ({sk.numel()} states)", (
+        max(max_err(sk[:, win], sp), max_err(xk[win], xp)),
+        kernel_ms(lambda: cuda_fsm8.emit_pass(xs, ns, entries), 3, 3), plain_ms,
+        bound_ms(xs, ns, entries, sk, xk), None)))
+    del sk, sp
+    if lanes * decode8.DEFAULT_CHUNK_BYTES < pdist._INT32_SAFE_BODY:
+        args = (xs, tables.fused, entries, m, tables.mt, tables.s, packed, buf.size)
+        vk, xk = cuda_fsm8.fused_pass(*args)
+        (vp, xp), plain_ms = timed(lambda: cuda_fsm8.fused_pass_plain(
+            xs[:, win], tables.fused, entries[win], m, tables.mt, tables.s, packed,
+            max(0, buf.size - win.start * k)))
+        out.append((cuda_fsm8.fused_pass, f"the sharded decode's, {at}", (
+            fused_err(vk[..., win], xk[win], vp, xp, m, packed),
+            kernel_ms(lambda: cuda_fsm8.fused_pass(*args), 3, 3), plain_ms,
+            bound_ms(xs, tables.fused, entries, vk, xk), None)))
+        del vk, vp
+    del xs
+
+    res, pk = pack_check(data[: TILE_BLOCKS * DEFAULT_BLOCK_BYTES], blob)
+    out.append((cuda_pack.pack_blocks, f"the first {TILE_BLOCKS}-block encode tile, whole", res))
+    sub = plane_sub_for(DEFAULT_BLOCK_BYTES)
+    cap = plane_cap_g(int(grouped_counts_plane(pk[1]).max()), DEFAULT_BLOCK_BYTES)
+    out.append((cuda_compact.compact_rows, f"that tile's words, sub={sub} cap={cap}",
+                compact_check(pk[0].view(torch.int32).t().contiguous(),
+                              pk[1].t().contiguous(), sub, cap)))
+
+    codes, lengths = code_tensors_for(blob, DEV)
+    blocks, valid = ab.encode_blocks(data, DEFAULT_BLOCK_BYTES, DEV)
+    n, win = blocks.shape[0], tail_window(blocks.shape[0])
+    at = f"the sharded compress's {n} blocks; blocks {win.start}-{win.stop - 1} compared"
+    pk = cuda_pack.pack_blocks(blocks, valid, codes, lengths)
+    pp, plain_ms = timed(lambda: cuda_pack.pack_blocks_plain(blocks[win], valid[win], codes,
+                                                             lengths))
+    err = ab.pack_err([t[win] for t in pk], pp)
+    require(err == 0, f"pack_blocks and its plain version differ (max |err| {err})")
+    out.append((cuda_pack.pack_blocks, f"{at} ({pk[0].numel()} words)", (
+        err, kernel_ms(lambda: cuda_pack.pack_blocks(blocks, valid, codes, lengths), 3, 3),
+        plain_ms, bound_ms(blocks, valid, codes, lengths, *pk), None)))
+    wk, ek = pk[0].view(torch.int32).t().contiguous(), pk[1].t().contiguous()
+    cap = plane_cap_g(int(grouped_counts_plane(pk[1]).max()), DEFAULT_BLOCK_BYTES)
+    del pk, blocks
+    ck = cuda_compact.compact_rows(wk, ek, sub, cap)
+    cp, plain_ms = timed(lambda: cuda_compact.compact_rows_plain(wk[:, win], ek[:, win], sub,
+                                                                 cap))
+    out.append((cuda_compact.compact_rows, f"{at}, its words, sub={sub} cap={cap}", (
+        max(max_err(ck[0][:, win], cp[0]), max_err(ck[1][:, win], cp[1])),
+        kernel_ms(lambda: cuda_compact.compact_rows(wk, ek, sub, cap), 3, 3), plain_ms,
+        bound_ms(wk, ek, *ck), None)))
+    return out
 
 
 def launch_counts() -> dict:
     return {fn: fn.launches for fn in KERNELS}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block leave every kernel's count as it was: a
+    comparison with the plain version is no launch of a main path."""
+    saved = launch_counts()
+    try:
+        yield
+    finally:
+        for fn, n in saved.items():
+            fn.launches = n
 
 
 def print_launches(label: str, before: dict) -> None:
@@ -750,6 +892,7 @@ def main(argv: list[str]) -> int:
                "round trip, written into <dir>",
     ).parse_args(argv)
     profile = bool(os.environ.get("ENTREEPY_PROFILE"))
+    smoke_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -782,9 +925,9 @@ def main(argv: list[str]) -> int:
           f"m={tables.m} s={tables.s} fused table {tuple(tables.fused.shape)} | {card}")
     results = {}
 
-    def show(label: str, res) -> None:
+    def show(label: str, res, tag: str = "kernels") -> None:
         err, ms, plain_ms, bound, library = res
-        print(f"[kernels] {label}: max_abs_err {err}, kernel {ms:.4f} ms, bound {bound:.4f} ms "
+        print(f"[{tag}] {label}: max_abs_err {err}, kernel {ms:.4f} ms, bound {bound:.4f} ms "
               f"({bound / ms:.1%} of it), plain {plain_ms:.3f} ms"
               + (f", library {library:.4f} ms" if library is not None else "") + f" | {card}")
 
@@ -835,6 +978,15 @@ def main(argv: list[str]) -> int:
     merge(cuda_fsm8.fused_pass, res)
     show(f"fused_pass unpacked, skewed body {sk_valid} B: {sk_lanes} lanes, m={sk_tables.m} "
          f"table {tuple(sk_tables.fused.shape)} ({sk_tables.fused.numel()} B shared)", res)
+    res = sync_check(sk_xs, sk_tables.next_state)
+    merge(cuda_fsm8.sync_pass, res)
+    show(f"sync_pass, skewed body: S={sk_tables.next_state.shape[0]} next_state "
+         f"{tuple(sk_tables.next_state.shape)}", res)
+    rh_xs, rh_tables, rh_valid, rh_lanes = body_cols(corpus("runheavy", 5 * MB))
+    res = fused_check(rh_xs, rh_tables, rh_valid, rh_lanes, False)
+    merge(cuda_fsm8.fused_pass, res)
+    show(f"fused_pass unpacked, run-heavy body {rh_valid} B: {rh_lanes} lanes, "
+         f"m={rh_tables.m} table {tuple(rh_tables.fused.shape)}", res)
     # a full tile of the streaming encode: the 100 MB text's first 32 MiB
     big_text = corpus("text", 100 * MB)
     big_blob = et.compress(big_text, backend="host")
@@ -1104,6 +1256,20 @@ def main(argv: list[str]) -> int:
         launches = {fn: launches[fn] + counts[fn] for fn in KERNELS}
     sharded_beside_device()
     run_world2(card)
+    def large_kernels(cfg, data: bytes, blob: bytes) -> None:
+        """[large]'s kernels against their plain versions at its shapes,
+        outside the path's launch counts."""
+        t0 = time.perf_counter()
+        with uncounted():
+            for fn, label, res in large_kernel_checks(data, blob):
+                merge(fn, res)
+                show(f"{cfg.name} {KERNELS[fn][0]}, {label}", res, "large")
+        torch.cuda.empty_cache()
+        print(f"[large] {cfg.name} kernels against their plain versions: "
+              f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+
+    counts = run_path("large", lambda: lg.run(DEV, card, KERNELS, check=large_kernels))
+    launches = {fn: launches[fn] + counts[fn] for fn in KERNELS}
     install_phase(card, text, e2e_blobs["text 5.2 MB"])
     bench_phase(card)
 
@@ -1124,6 +1290,7 @@ def main(argv: list[str]) -> int:
     jax_package = [n for n in sys.modules if n.split(".")[0] == "entreepy_tpu"]
     require(not jax_package, f"the port imported the JAX package: {jax_package}")
 
+    print(f"[smoke] {time.perf_counter() - smoke_t0:.1f} s, the build included | {card}")
     print(json.dumps({"kernels": [
         {"name": KERNELS[fn][0], "route": "cuda", "source": KERNELS[fn][1],
          "replaces": KERNELS[fn][2], "launches": launches[fn], "max_abs_err": err,

@@ -26,8 +26,8 @@ on the host. The one-pass route streams through
 :func:`decode_body_device_tiled`: tiles of up to ``TILE_LANES`` lanes
 decoded in stream order, each tile's lane 0 entering at the previous tile's
 last exit, tile-local positions, and each tile's fetch overlapped with the
-next tile's decode. The two-pass device routes run untiled up to the int32
-position bound.
+next tile's upload and passes. The two-pass device routes run untiled up to
+the int32 position bound.
 """
 
 from __future__ import annotations
@@ -305,22 +305,31 @@ def extract_plane_symbols(plane, mini_tot) -> np.ndarray:
     return arr[mask]
 
 
-def assemble_symbol_planes(
-    planes, minis, lane_tots, w_invs, n_symbols, table, n_body
-) -> np.ndarray:
-    """Validate + extract fetched lane-major compacted symbol planes, one
-    list entry per tile (a singleton on the untiled routes): serial-exact accept/reject over
-    the concatenated per-lane metadata, each plane's live prefixes in stream
-    order, trim to ``n_symbols``, exact-bit invariant."""
+def fetch_symbols(plane):
+    """Fetch a compacted :func:`lane_major` plane and extract its symbols on
+    the host -> (symbols uint8 in stream order, lane_tot, w_inv). ``plane``
+    is the plane's tensors, fetched here, or the wait of a fetch that
+    :func:`_fetch_async` started earlier (the tiled decode's, behind the
+    next tile's passes). The fetched plane is let go once its symbols are
+    extracted, so a tiled decode holds one tile's plane at a time."""
+    with phase("device_sym_fetch"):
+        wait = plane if callable(plane) else _fetch_async(plane)
+        plane, mini_tot, lane_tot, w_inv = wait()
+    with phase("host_extract"):
+        return extract_plane_symbols(plane, mini_tot), lane_tot, w_inv
+
+
+def assemble_symbols(parts, lane_tots, w_invs, n_symbols, table, n_body) -> np.ndarray:
+    """Serial-exact accept/reject over the concatenated per-lane metadata of
+    every tile (one list entry per tile; a singleton on the untiled routes),
+    then the tiles' extracted symbols joined and trimmed to ``n_symbols``,
+    and the exact-bit invariant."""
     with phase("host_validate"):
         lane_tot = np.concatenate([np.asarray(c, dtype=np.int64) for c in lane_tots])
         w_inv = np.concatenate([np.asarray(w, dtype=np.int64) for w in w_invs])
         w_inv[w_inv >= NO_INVALID] = -1
         validate_chunk_meta(lane_tot, w_inv, n_symbols)
-    with phase("host_extract"):
-        out = np.concatenate(
-            [extract_plane_symbols(p, mt) for p, mt in zip(planes, minis)]
-        )[:n_symbols]
+    out = np.concatenate(parts)[:n_symbols]
     if out.size < n_symbols:
         raise ValueError(
             f"bitstream ended early: decoded {out.size} of {n_symbols} symbols"
@@ -402,9 +411,7 @@ def decode_body_device_full(
         return decode_host(buf, table, n_symbols)
     with phase("device_expand", n_symbols):
         plane = lane_major(*_rows_plane(*run_expand(xs, states, tables, buf.size), tables.m))
-    with phase("device_sym_fetch", n_symbols):
-        fetched = _fetch_async(plane)()
-    return assemble_symbol_planes(*([t] for t in fetched), n_symbols, table, buf.size)
+    return assemble_symbols(*zip(fetch_symbols(plane)), n_symbols, table, buf.size)
 
 
 @functools.cache
@@ -415,27 +422,31 @@ def _copy_stream(device: torch.device) -> torch.cuda.Stream:
 def _fetch_async(tensors):
     """Start copying ``tensors`` to the host behind the work queued so far,
     without blocking; returns a callable that waits for the copy and gives
-    the numpy arrays. On CUDA a side stream waits on the current one, copies
-    into pinned host tensors and records an event, so the copy overlaps
-    whatever is queued next; the source tensors are marked as used by that
-    stream, so their memory is not reused before the copy ends. CPU tensors
-    are already on the host."""
+    the numpy arrays, whose holder then owns the host buffers alone (the
+    callable keeps none). On CUDA a side stream waits on the current one,
+    copies into pinned host tensors and records an event, so the copy
+    overlaps whatever is queued next; the source tensors are marked as used
+    by that stream, so their memory is not reused before the copy ends. CPU
+    tensors are already on the host."""
     dev = tensors[0].device
-    if dev.type != "cuda":
-        return lambda: [t.numpy() for t in tensors]
-    side = _copy_stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-    with torch.cuda.stream(side):
-        for h, t in zip(host, tensors):
-            h.copy_(t, non_blocking=True)
-            t.record_stream(side)
-        done = torch.cuda.Event()
-        done.record(side)
+    host, done = list(tensors), None
+    if dev.type == "cuda":
+        side = _copy_stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        with torch.cuda.stream(side):
+            for h, t in zip(host, tensors):
+                h.copy_(t, non_blocking=True)
+                t.record_stream(side)
+            done = torch.cuda.Event()
+            done.record(side)
 
     def wait():
-        done.synchronize()
-        return [h.numpy() for h in host]
+        if done is not None:
+            done.synchronize()
+        arrays = [h.numpy() for h in host]
+        host.clear()
+        return arrays
 
     return wait
 
@@ -456,7 +467,10 @@ def decode_body_device_tiled(
     nothing back) and self-sync runs within a tile. Per tile: upload, fused
     passes to the fixed point, compaction (:func:`onepass_plane`), the
     lane-major transpose, then the fetch of its plane, which overlaps the
-    next tile's decode (depth-2 pipeline). Byte
+    next tile's upload and passes (depth-2 pipeline) and lands, its symbols
+    extracted on the host (:func:`fetch_symbols`), before the next tile's
+    compaction: the device and the pinned host memory hold one tile's plane
+    at a time, so neither grows with the body. Byte
     positions are tile-local, so no int32 wraps at any body size. The
     accept/reject and the exact-bit check run once over the concatenated
     per-tile metadata. A tile whose self-sync does not converge sends the
@@ -470,7 +484,7 @@ def decode_body_device_tiled(
         tables = decode_tables(build_byte_fsm(table), device)
     m = tables.m
     packed = m <= 3
-    fetched, pending, entry0 = [], None, 0
+    parts, pending, entry0 = [], None, 0
     for l0 in range(0, lanes, t_lanes):
         tl = min(t_lanes, lanes - l0)
         seg = buf[l0 * chunk_bytes:(l0 + tl) * chunk_bytes]  # seg.size: the tile's n_valid
@@ -482,16 +496,18 @@ def decode_body_device_tiled(
             )
         if unconverged:
             return decode_host(buf, table, n_symbols)
+        # this tile's columns, then the previous tile's plane, leave the device
+        # before this tile's compaction
+        del cols
+        if pending is not None:
+            parts.append(fetch_symbols(pending))
         with phase("device_expand", n_symbols):
             plane = lane_major(*onepass_plane(vals, m, packed, seg.size))
-        if pending is not None:
-            with phase("device_sym_fetch", n_symbols):
-                fetched.append(pending())
         pending = _fetch_async(plane)
+        del vals, plane
         entry0 = exits[-1:]
-    with phase("device_sym_fetch", n_symbols):
-        fetched.append(pending())
-    return assemble_symbol_planes(*zip(*fetched), n_symbols, table, buf.size)
+    parts.append(fetch_symbols(pending))
+    return assemble_symbols(*zip(*parts), n_symbols, table, buf.size)
 
 
 def expand_states(states: np.ndarray, body: np.ndarray, fsm: ByteFsm,

@@ -184,10 +184,7 @@ class _ExitGather:
 def _plane_symbols(plane):
     """A compacted plane's fetch and host extraction -> (lane_tot, w_inv with
     -1 for none, this rank's symbols)."""
-    with phase("device_sym_fetch"):
-        plane_np, mini_tot, lane_tot, w_inv = decode8._fetch_async(plane)()
-    with phase("host_extract"):
-        syms = decode8.extract_plane_symbols(plane_np, mini_tot)
+    syms, lane_tot, w_inv = decode8.fetch_symbols(plane)
     w_inv = w_inv.astype(np.int64)
     w_inv[w_inv >= decode8.NO_INVALID] = -1
     return lane_tot.astype(np.int64), w_inv, syms

@@ -89,6 +89,19 @@ def test_corpus_matches_source(source, kind, monkeypatch):
         assert corpus.make_corpus("text", n) == _mh_worker_text(n)
 
 
+def test_random_family_body_is_its_input():
+    """A 16 MiB sample of the random family gets 256 codes of 8 bits, so its
+    body is as long as its input, as the JAX host codec's: the premise of
+    the [large] phase's 2^31 + 2^27 B configuration, whose body the phase
+    requires to be at least 2^31 B."""
+    data = corpus.make_corpus("random", 1 << 24)
+    blob = et.compress(data, backend="host")
+    table = et.format.parse_header(blob).table
+    assert table.num_symbols == 256 and table.min_len == table.max_len == 8
+    assert len(blob) - et.format.parse_header(blob).body_start == len(data)
+    assert blob == jax_compress_host(data)
+
+
 def test_text_required_outside_checkout(monkeypatch, capsys):
     """An installed package has no fixture: the run needs --text, and with
     it makes the same corpus."""

@@ -201,8 +201,8 @@ def test_record_stages_times_every_stage(midsummer):
                          "sizing_fetch", "device_compact", "device_fetch", "host_assemble",
                          "stitch", "serialize"]
     assert list(dec) == ["decode_tables", "body_upload", "device_fsm8_decode",
-                         "device_expand", "device_sym_fetch", "host_validate",
-                         "host_extract", "host_check_bits"]
+                         "device_expand", "device_sym_fetch", "host_extract",
+                         "host_validate", "host_check_bits"]
     assert all(ms >= 0 for ms in [*enc.values(), *dec.values()])
     entreepy_tpu_torch.decompress(et, backend="device", device="cpu")
     assert len(dec) == 8

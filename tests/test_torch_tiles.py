@@ -181,3 +181,111 @@ def test_encode_default_tile_width():
 
     assert te.TILE_BLOCKS * te.DEFAULT_BLOCK_BYTES == 32 << 20 == je.TILE_BLOCKS * 1024
     assert td.TILE_LANES == jd.TILE_LANES == 65536
+
+
+def test_tile_fetch_lands_before_next_compaction(monkeypatch, midsummer):
+    """The previous tile's plane is fetched, and let go on the device, before
+    the next tile's compaction runs: one tile's plane at most is on the device
+    through a compaction, so the tiled decode's peak does not grow with the
+    number of tiles (the JAX package's decode has no device-side copy to wait
+    for)."""
+    data = midsummer[:20000]
+    _, hdr, body = _parts(data)
+    events = []
+    real_fetch, real_plane = td._fetch_async, td.onepass_plane
+
+    def fetch(tensors):
+        i = sum(e[0] == "fetch" for e in events)
+        events.append(("fetch", i))
+        wait = real_fetch(tensors)
+
+        def landed():
+            events.append(("landed", i))
+            return wait()
+
+        return landed
+
+    def plane(*a, **k):
+        events.append(("compact", sum(e[0] == "compact" for e in events)))
+        return real_plane(*a, **k)
+
+    monkeypatch.setattr(td, "_fetch_async", fetch)
+    monkeypatch.setattr(td, "onepass_plane", plane)
+    got = td.decode_body_device_tiled(body, hdr.table, hdr.body_len, device="cpu",
+                                      chunk_bytes=CHUNK, tile_lanes=8)
+    assert bytes(got) == data
+    tiles = sum(e[0] == "compact" for e in events)
+    assert tiles == -(-len(body) // (8 * CHUNK)) > 2
+    for i in range(1, tiles):
+        assert events.index(("landed", i - 1)) < events.index(("compact", i)), events
+
+
+def test_tile_fetch_is_let_go_once_extracted(monkeypatch, midsummer):
+    """Each tile's fetched plane (pinned host memory on the card) is let go
+    once its symbols are extracted, before the next tile's fetch starts: the
+    host holds one tile's plane at a time, not one per tile until assembly,
+    and the wait of a landed fetch keeps no buffer of it."""
+    import weakref
+
+    data = midsummer[:20000]
+    _, hdr, body = _parts(data)
+    real_fetch, planes = td._fetch_async, []
+
+    def held():
+        return [r for r in planes if r() is not None]
+
+    def fetch(tensors):
+        assert not held(), "an earlier tile's plane is still held"
+        wait = real_fetch(tensors)
+        planes.extend(weakref.ref(t) for t in tensors[:2])  # the plane and its mini_tot
+
+        def landed():
+            got = wait()
+            planes.extend(weakref.ref(a) for a in got[:2])
+            return got
+
+        return landed
+
+    monkeypatch.setattr(td, "_fetch_async", fetch)
+    got = td.decode_body_device_tiled(body, hdr.table, hdr.body_len, device="cpu",
+                                      chunk_bytes=CHUNK, tile_lanes=8)
+    assert bytes(got) == data and len(planes) == 4 * -(-len(body) // (8 * CHUNK)) > 8
+    assert not held()
+
+
+@pytest.mark.parametrize("expand,stage", [("onepass", None), ("split", "device_sym_fetch"),
+                                          ("fused", "device_sym_fetch")])
+def test_fetch_starts_in_its_own_stage(expand, stage, monkeypatch, midsummer):
+    """Where a plane's fetch starts decides which stage of
+    ``trace.record_stages`` its copy is charged to: the untiled routes start
+    it inside ``device_sym_fetch``; the tiled decode starts each tile's
+    after that tile's ``device_expand`` has closed, so the compaction's time
+    holds no copy."""
+    import contextlib
+
+    data = midsummer[:20000]
+    _, hdr, body = _parts(data)
+    open_stages, starts = [], []
+    real_fetch, real_phase = td._fetch_async, td.phase
+
+    @contextlib.contextmanager
+    def phase(name, *a):
+        open_stages.append(name)
+        with real_phase(name, *a):
+            yield
+        open_stages.pop()
+
+    def fetch(tensors):
+        starts.append(open_stages[-1] if open_stages else None)
+        return real_fetch(tensors)
+
+    monkeypatch.setattr(td, "phase", phase)
+    monkeypatch.setattr(td, "_fetch_async", fetch)
+    if expand == "onepass":
+        got = td.decode_body_device_tiled(body, hdr.table, hdr.body_len, device="cpu",
+                                          chunk_bytes=CHUNK, tile_lanes=8)
+    else:
+        got = td.decode_body_device_full(body, hdr.table, hdr.body_len, device="cpu",
+                                         chunk_bytes=CHUNK, expand=expand)
+    assert bytes(got) == data
+    assert starts and set(starts) == {stage}, starts

@@ -355,7 +355,7 @@ def test_unconverged_state_pass_uses_host_decoder(mode, monkeypatch, midsummer):
 
 
 DEVICE_STAGES = ["decode_tables", "body_upload", "device_fsm8_decode", "device_expand",
-                 "device_sym_fetch", "host_validate", "host_extract", "host_check_bits"]
+                 "device_sym_fetch", "host_extract", "host_validate", "host_check_bits"]
 
 
 @pytest.mark.parametrize("mode,stages", [
