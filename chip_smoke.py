@@ -4,6 +4,7 @@
 Run from the root of a checkout, on a machine with an H100:
 
     [ENTREEPY_PROFILE=<dir>] python3 chip_smoke.py
+    python3 chip_smoke.py --only multicard   # phases 1, 2 and [multicard] alone
 
 Phases, one or more lines each; any failure raises and the exit code is not 0:
 
@@ -55,10 +56,24 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              5.2 MB text through every route, the 5 MB skewed body through
              "onepass" and "fused", the 100 MB text compressed and decompressed
              once (untiled) with its peak device memory beside the device
-             backend's; then world 2 on the one card, two spawned processes in
+             backend's (world 1 on any machine: one rank on ``cuda``); then
+             world 2 on the one card, two spawned processes in
              a gloo group, the 5.2 MB text and 5 MB skewed round trips through
              "onepass" and "host" (.et equal the host backend's, the same
-             fixed-point passes on both ranks, a timeout); the JAX
+             fixed-point passes on both ranks, a timeout); the sharded
+             backend over several ranks (``[multicard]``): a local mesh of two
+             ranks on cuda:0 (two threads, one card) through the 5.2 MB text
+             on every route, 5 MB skewed and run-heavy and 100 MB text, each
+             call exact, its peak device memory per card, the ranks' passes,
+             exchange stages and bytes read from the other ranks (counted
+             from shapes), beside the device backend's time; with two or more
+             cards (up to four) also auto's pick of ``sharded`` at 100 MB,
+             the local mesh over the cards at those sizes and at text-1GB and
+             random-2.125GiB ("onepass" and "host"), NCCL process worlds of
+             2 and n ranks, a card each (``NCCL_DEBUG=WARN``; each rank's
+             launches, peak device memory and peak RSS), and each kernel
+             against its plain version on every card; with one card, one line
+             saying so; the JAX
              package's largest configurations (``[large]``,
              tools/large_check.py): 10^9 B of text (enwik9 scale) and
              2^31 + 2^27 B of random bytes (a body past 2 GiB, required)
@@ -118,13 +133,18 @@ last line).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import gc
+import inspect
 import json
 import os
+import resource
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zipfile
 from pathlib import Path
@@ -148,14 +168,16 @@ import torch_kernel_ab as ab  # noqa: E402  (the kernels' comparisons, shared)
 
 import entreepy_tpu_torch as et  # noqa: E402
 from entreepy_tpu_torch.bench import bound_ms, kernel_ms, make_corpus  # noqa: E402
+from entreepy_tpu_torch.bench.timing import rss_peak  # noqa: E402
 from entreepy_tpu_torch import _build, api, cli, runtime, trace  # noqa: E402
 from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, decode8  # noqa: E402
 from entreepy_tpu_torch.ops.bitpack import (  # noqa: E402
     grouped_counts_plane, plane_cap_g, plane_sub_for,
 )
+from entreepy_tpu_torch.format import parse_header  # noqa: E402
 from entreepy_tpu_torch.ops.encode import DEFAULT_BLOCK_BYTES, TILE_BLOCKS  # noqa: E402
 from entreepy_tpu_torch.parallel import dist as pdist  # noqa: E402
-from entreepy_tpu_torch.parallel import make_mesh  # noqa: E402
+from entreepy_tpu_torch.parallel import make_mesh, multihost  # noqa: E402
 from entreepy_tpu_torch.tables import (  # noqa: E402
     body_for, code_tensors_for, decode_tables_for, expand_tables_for,
 )
@@ -199,6 +221,8 @@ PATH_KERNELS = {
     "sharded": tuple(KERNELS),
     # the JAX package's largest configurations (tools/large_check.py)
     "large": lg.PATH_KERNELS,
+    # local meshes: 5.2 MB text through every route, so all seven kernels
+    "multicard": tuple(KERNELS),
 }
 # World 1 of the sharded phase: each corpus through these routes.
 SHARDED_CASES = (("text 5.2 MB", decode8.EXPAND_MODES), ("skewed 5 MB", ("onepass", "fused")))
@@ -206,8 +230,18 @@ SHARDED_CASES = (("text 5.2 MB", decode8.EXPAND_MODES), ("skewed 5 MB", ("onepas
 # (NCCL takes one card per rank), each round trip through these routes.
 WORLD2_CASES = (("text 5.2 MB", "text", 5_200_000), ("skewed 5 MB", "skewed", 5 * MB))
 WORLD2_ROUTES = ("onepass", "host")
-WORLD2_TIMEOUT_S = 400
-WORLD2_KERNELS = ("sync_pass", "fused_pass", "emit_pass", "pack_blocks", "compact_rows")
+WORLD_TIMEOUT_S = 400
+WORLD_KERNELS = ("sync_pass", "fused_pass", "emit_pass", "pack_blocks", "compact_rows")
+# [multicard]: the sharded backend over several ranks: local meshes (one
+# process, a thread per rank; 2 ranks on cuda:0 on any machine, one rank per
+# card over up to MC_MAX_CARDS cards) and NCCL process worlds, a card each.
+MC_MAX_CARDS = 4
+MC_CASES = (("text 5.2 MB", decode8.EXPAND_MODES), ("skewed 5 MB", ("onepass", "fused")),
+            ("runheavy 5 MB", ("onepass",)), ("text 100 MB", ("onepass", "host")))
+MC_LARGE_ROUTES = ("onepass", "host")  # at [large]'s configurations, across the cards
+NCCL_CASES = (("text 5.2 MB", "text", 5_200_000), ("text 100 MB", "text", 100 * MB))
+NCCL_ROUTES = ("onepass", "host")
+NCCL_TIMEOUT_S = 240  # a world's ranks take about 40 s; NCCL that cannot start must not hang
 # [large]: lanes or blocks of an untiled shape held against the plain version
 LARGE_WINDOW = 65_536
 
@@ -395,7 +429,7 @@ def fused_check(xs, tables, n_valid, lanes, packed: bool):
 def fused_err(vk, xk, vp, xp, m: int, packed: bool) -> int:
     """The fused kernel's rows and exits against the plain version's:
     row0/count bytes and exits exact, symbol slots where live (j < count)."""
-    j = torch.arange(m, device=DEV)[None, :, None]
+    j = torch.arange(m, device=vk.device)[None, :, None]
     if packed:
         row0k, row0p = vk >> (8 * m), vp >> (8 * m)
         shifts = (8 * (m - 1 - j)).int()
@@ -511,20 +545,160 @@ def large_kernel_checks(data: bytes, blob: bytes) -> list:
     return out
 
 
+# --- every kernel held against its plain version at the shapes a path gives it ---
+
+def _sync_err(a, out, win):
+    plain = cuda_fsm8.sync_pass_plain(a["xs"][:, win], a["next_state"], a["entries"][win])
+    return max_err(out[win], plain)
+
+
+def _emit_err(a, out, win):
+    sp, xp = cuda_fsm8.emit_pass_plain(a["xs"][:, win], a["next_state"], a["entries"][win])
+    return max(max_err(out[0][:, win], sp), max_err(out[1][win], xp))
+
+
+def _fused_err(a, out, win):
+    xs, n_valid = a["xs"], a["n_valid"]
+    if n_valid is not None:  # lane-linear: the window's lanes start win.start * K bytes in
+        n_valid = max(0, n_valid - win.start * xs.shape[0])
+    vp, xp = cuda_fsm8.fused_pass_plain(xs[:, win], a["t_fused"], a["entries"][win], a["m"],
+                                        a["mt"], a["s"], a["packed"], n_valid)
+    return fused_err(out[0][..., win], out[1][win], vp, xp, a["m"], a["packed"])
+
+
+def _expand_err(plain):
+    def err(a, out, win):
+        table = a["t_split"] if "t_split" in a else a["t_exp"]
+        extra = (a["mt"],) if "t_split" in a else ()
+        vp = plain(a["xs"][:, win], a["states"][:, win], table, a["m"], *extra)
+        vk = out[..., win]
+        j = torch.arange(a["m"], device=vk.device)[None, :, None]
+        return max(max_err(vk[:, 0], vp[:, 0]),
+                   max_err(vk[:, 1:], vp[:, 1:], j < (vp[:, 0] & 15)[:, None, :]))
+    return err
+
+
+def _pack_err(a, out, win):
+    pp = cuda_pack.pack_blocks_plain(a["blocks"][win], a["valid"][win], a["codes"],
+                                     a["lengths"])
+    err = ab.pack_err([t[win] for t in out], pp)
+    require(err == 0, f"pack_blocks and its plain version differ (max |err| {err})")
+    return err
+
+
+def _compact_err(a, out, win):
+    cp = cuda_compact.compact_rows_plain(a["wk"][:, win], a["ek"][:, win], a["sub"], a["cap"])
+    return max(max_err(out[0][:, win], cp[0]), max_err(out[1][:, win], cp[1]))
+
+
+# kernel -> (its comparison with the plain version on a window of its lanes
+# or blocks, the argument whose lanes (dim 1) or blocks (dim 0) are windowed)
+SHADOW = {
+    cuda_fsm8.sync_pass: (_sync_err, ("xs", 1)),
+    cuda_fsm8.emit_pass: (_emit_err, ("xs", 1)),
+    cuda_fsm8.fused_pass: (_fused_err, ("xs", 1)),
+    cuda_fsm8.expand_pass_split: (_expand_err(cuda_fsm8.expand_pass_split_plain), ("xs", 1)),
+    cuda_fsm8.expand_pass: (_expand_err(cuda_fsm8.expand_pass_plain), ("xs", 1)),
+    cuda_pack.pack_blocks: (_pack_err, ("blocks", 0)),
+    cuda_compact.compact_rows: (_compact_err, ("wk", 1)),
+}
+
+
+class _Checked:
+    """A kernel wrapper that, after each call, runs its plain version on the
+    same inputs (the last LARGE_WINDOW lanes or blocks) and compares;
+    attributes (the launch counts) are the wrapper's own."""
+
+    def __init__(self, fn, record):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_record", record)
+        object.__setattr__(self, "_sig", inspect.signature(fn))
+
+    def __call__(self, *args, **kwargs):
+        out = self._fn(*args, **kwargs)
+        bound = self._sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        a = bound.arguments
+        compare, (key, dim) = SHADOW[self._fn]
+        n = a[key].shape[dim]
+        win = tail_window(n)
+        err = compare(a, out, win)
+        shape = tuple(a[key].shape)
+        self._record(self._fn, err,
+                     shape if win.start == 0 else (*shape, f"last {win.stop - win.start}"))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
+@contextlib.contextmanager
+def checked_kernels():
+    """Inside the block every kernel wrapper, wherever the port's modules
+    bind it, is a :class:`_Checked` one, and the launches leave the counts
+    as they were (``uncounted``). Yields {kernel: [calls, max error, the
+    shapes compared]}; a difference raises in the thread that met it."""
+    lock = threading.Lock()
+    seen = {fn: [0, 0, set()] for fn in KERNELS}
+
+    def record(fn, err, shape):
+        with lock:
+            s = seen[fn]
+            s[0], s[1] = s[0] + 1, max(s[1], err)
+            s[2].add(shape)
+
+    patched = []
+    for mod in [m for name, m in list(sys.modules.items())
+                if name.split(".")[0] == "entreepy_tpu_torch" and m is not None]:
+        for attr, value in list(vars(mod).items()):
+            if any(value is fn for fn in KERNELS):
+                patched.append((mod, attr, value))
+                setattr(mod, attr, _Checked(value, record))
+    try:
+        with uncounted():
+            yield seen
+    finally:
+        for mod, attr, value in patched:
+            setattr(mod, attr, value)
+
+
+def shadow_checked(label: str, calls, merge, card: str) -> None:
+    """Each (name, fn, want) of ``calls`` once more, exact, with every kernel
+    it launches held against its plain version at the shapes the call gives
+    it (``checked_kernels``); prints each kernel's calls, shapes and error
+    and merges the error into the JSON line's."""
+    t0 = time.perf_counter()
+    with checked_kernels() as seen:
+        for name, fn, want in calls:
+            require(fn() == want, f"{label} {name}: result differs under the kernel checks")
+    for fn, (n, err, shapes) in seen.items():
+        if n:
+            merge(fn, (err, None, None, None, None))
+            print(f"[multicard] {label}: {KERNELS[fn][0]} against its plain version in {n} "
+                  f"calls, max_abs_err {err}, shapes {sorted(shapes, key=str)} | {card}",
+                  flush=True)
+    print(f"[multicard] {label}: every launch of the calls held against its plain version, "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+
+
 def launch_counts() -> dict:
     return {fn: fn.launches for fn in KERNELS}
 
 
 @contextlib.contextmanager
 def uncounted():
-    """Launches inside the block leave every kernel's count as it was: a
-    comparison with the plain version is no launch of a main path."""
-    saved = launch_counts()
+    """Launches inside the block leave every kernel's counts (in all and
+    per card) as they were: a comparison with the plain version is no
+    launch of a main path."""
+    saved = {fn: (fn.launches, collections.Counter(fn.launches_on)) for fn in KERNELS}
     try:
         yield
     finally:
-        for fn, n in saved.items():
-            fn.launches = n
+        for fn, (n, on) in saved.items():
+            fn.launches, fn.launches_on = n, on
 
 
 def print_launches(label: str, before: dict) -> None:
@@ -542,53 +716,73 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def world2_rank(rank: int, port: int, out: str) -> None:
-    """One rank of the world-2 sharded run (a spawned process; its device is
-    cuda:0, rank % 1): the round trips of WORLD2_CASES through
-    WORLD2_ROUTES with the sharded backend, each .et equal to the host
-    backend's; writes its fixed-point passes, times (median of 3 warm
-    calls), exit all-gather ms and kernel launches to ``out``."""
-    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
-                             rank=rank)
+def world_rank(rank: int, world: int, backend: str, cases, routes, port: int,
+               out: str) -> None:
+    """One rank of a sharded process world (a spawned process): a gloo group
+    with every rank on cuda:0, or an NCCL group with rank r on cuda:r
+    (``multihost.init`` binds it). The round trips of ``cases`` (name,
+    corpus kind, bytes) through ``routes`` with the sharded backend, each
+    .et equal to the host backend's; writes to ``out`` its fixed-point
+    passes, times (median of 3 warm calls), stage ms of the exchanges,
+    kernel launches, host fallbacks, its card's peak device memory and its
+    peak RSS."""
+    multihost.init(backend=backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                   rank=rank)
     try:
-        require(make_mesh().world == 2, "world-2 mesh is not two ranks")
-        res = {}
-        for name, kind, n in WORLD2_CASES:
-            data = corpus(kind, n)
-            blob = et.compress(data, backend="sharded")
-            require(blob == et.compress(data, backend="host"),
-                    f"world 2 {name}: .et differs from the host backend's")
-            res[name] = {"compress_ms": wall_ms(lambda: et.compress(data, backend="sharded"), 3)}
-            for route in WORLD2_ROUTES:
-                require(et.decompress(blob, backend="sharded", expand=route) == data,
-                        f"world 2 {name} expand={route}: round trip differs")
-                passes = pdist.last_decode_stats["passes"]
-                ms = wall_ms(lambda: et.decompress(blob, backend="sharded", expand=route), 3)
+        with rss_peak() as rss:
+            device = "cuda:0" if backend == "gloo" else None
+            mesh = make_mesh(device=device)
+            require(mesh.world == world and mesh.group is not None, f"world-{world} mesh {mesh}")
+            require(torch.cuda.current_device() == mesh.device.index or backend == "gloo",
+                    f"rank {rank} bound to cuda:{torch.cuda.current_device()}, not {mesh.device}")
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+            res = {"device": str(mesh.device)}
+            for name, kind, n in cases:
+                data = corpus(kind, n)
+                blob = et.compress(data, backend="sharded", device=device)
+                require(blob == et.compress(data, backend="host"),
+                        f"world {world} {name}: .et differs from the host backend's")
+                res[name] = {"compress_ms": wall_ms(
+                    lambda: et.compress(data, backend="sharded", device=device), 3)}
                 with trace.record_stages() as stages:
-                    et.decompress(blob, backend="sharded", expand=route)
-                res[name][route] = {"passes": passes, "ms": ms,
-                                    "allgather_ms": stages["allgather_exits"]}
-        res["launches"] = {KERNELS[fn][0]: fn.launches for fn in KERNELS}
-        res["host_fallbacks"] = decode8.decode_host.calls
+                    et.compress(data, backend="sharded", device=device)
+                res[name]["compress_stages"] = stages
+                for route in routes:
+                    require(et.decompress(blob, backend="sharded", device=device,
+                                          expand=route) == data,
+                            f"world {world} {name} expand={route}: round trip differs")
+                    passes = pdist.last_decode_stats["passes"]
+                    ms = wall_ms(lambda: et.decompress(blob, backend="sharded", device=device,
+                                                       expand=route), 3)
+                    with trace.record_stages() as stages:
+                        et.decompress(blob, backend="sharded", device=device, expand=route)
+                    res[name][route] = {"passes": passes, "ms": ms, "stages": stages}
+            torch.cuda.synchronize(mesh.device)
+            res["peak_bytes"] = torch.cuda.max_memory_allocated(mesh.device)
+            res["launches"] = {KERNELS[fn][0]: fn.launches for fn in KERNELS}
+            res["host_fallbacks"] = decode8.decode_host.calls
+            res["peak_rss"] = rss["bytes"]  # sampled so far: the rank's work is done
         Path(out).write_text(json.dumps(res))
     finally:
         tdist.destroy_process_group()
 
 
-def run_world2(card: str) -> None:
-    """The world-2 sharded run: two spawned ranks on the one card; a rank
-    that fails, or a run past WORLD2_TIMEOUT_S, fails the smoke."""
+def run_world(card: str, world: int, backend: str, cases, routes, tag: str,
+              timeout: float = WORLD_TIMEOUT_S) -> None:
+    """A sharded process world of ``world`` spawned ranks (``world_rank``);
+    a rank that fails, or a run past ``timeout`` seconds, fails the smoke."""
     ctx = tmp.get_context("spawn")
     port = free_port()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmpdir:
-        outs = [Path(tmpdir) / f"rank{r}.json" for r in range(2)]
-        procs = [ctx.Process(target=world2_rank, args=(r, port, str(o)))
+        outs = [Path(tmpdir) / f"rank{r}.json" for r in range(world)]
+        procs = [ctx.Process(target=world_rank,
+                             args=(r, world, backend, cases, routes, port, str(o)))
                  for r, o in enumerate(outs)]
         t0 = time.perf_counter()
         for p in procs:
             p.start()
-        deadline = time.monotonic() + WORLD2_TIMEOUT_S
+        deadline = time.monotonic() + timeout
         for p in procs:
             p.join(timeout=max(0.0, deadline - time.monotonic()))
         hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -596,28 +790,304 @@ def run_world2(card: str) -> None:
             if p.is_alive():
                 p.kill()
                 p.join()
-        require(not hung, f"world 2: ranks {hung} did not finish in {WORLD2_TIMEOUT_S} s")
+        require(not hung, f"world {world}: ranks {hung} did not finish in {timeout} s")
         codes = [p.exitcode for p in procs]
-        require(codes == [0, 0], f"world 2: rank exit codes {codes}")
+        require(codes == [0] * world, f"world {world}: rank exit codes {codes}")
         ranks = [json.loads(o.read_text()) for o in outs]
     wall = time.perf_counter() - t0
+    where = ("on cuda:0" if backend == "gloo"
+             else "on " + ", ".join(res["device"] for res in ranks))
+    label = f"world {world} ({backend}, {world} ranks {where})"
     for r, res in enumerate(ranks):
-        require(res["host_fallbacks"] == 0, f"world 2 rank {r} fell back to the host decoder")
-        idle = [k for k in WORLD2_KERNELS if res["launches"][k] == 0]
-        require(not idle, f"world 2 rank {r} never launched {idle}")
-        print(f"[sharded] world 2 rank {r} kernel launches: {res['launches']}")
-    for name, _, _ in WORLD2_CASES:
-        for route in WORLD2_ROUTES:
+        require(res["host_fallbacks"] == 0, f"{label} rank {r} fell back to the host decoder")
+        idle = [k for k in WORLD_KERNELS if res["launches"][k] == 0]
+        require(not idle, f"{label} rank {r} never launched {idle}")
+        print(f"{tag} {label} rank {r} on {res['device']}: kernel launches {res['launches']}, "
+              f"peak device memory {res['peak_bytes']} B, peak RSS {res['peak_rss']} B | {card}")
+    for name, _, _ in cases:
+        for route in routes:
             got = [res[name][route] for res in ranks]
             passes = [g["passes"] for g in got]
-            require(len(set(passes)) == 1, f"world 2 {name} {route}: passes differ {passes}")
-            print(f"[sharded] world 2 (gloo, 2 ranks on cuda:0) {name} expand={route}: "
-                  f"round trip ok, .et == host, fixed-point passes per rank {passes}, "
-                  f"decompress ms per rank {[round(g['ms'], 3) for g in got]}, exit "
-                  f"all-gathers ms per rank {[round(g['allgather_ms'], 3) for g in got]} | "
-                  f"compress ms per rank {[round(res[name]['compress_ms'], 3) for res in ranks]}"
-                  f" | warm median of 3 | {card}")
-    print(f"[sharded] world 2: both ranks exit 0 in {wall:.1f} s (spawn included) | {card}")
+            require(len(set(passes)) == 1, f"{label} {name} {route}: passes differ {passes}")
+            print(f"{tag} {label} {name} expand={route}: round trip ok, .et == host, "
+                  f"fixed-point passes per rank {passes}, decompress ms per rank "
+                  f"{[round(g['ms'], 3) for g in got]}, stage ms per rank "
+                  f"{exchange_stages([g['stages'] for g in got])} | compress ms per rank "
+                  f"{[round(res[name]['compress_ms'], 3) for res in ranks]}, stage ms per rank "
+                  f"{exchange_stages([res[name]['compress_stages'] for res in ranks])} "
+                  f"| warm median of 3 | {card}")
+    print(f"{tag} {label}: every rank exit 0 in {wall:.1f} s (spawn included) | {card}")
+
+
+# Stages that time the ranks' exchanges (and the host work beside them)
+EXCHANGE_STAGES = ("allgather_exits", "gather_symbols", "gather_payload", "host_extract",
+                   "host_expand", "host_validate", "host_join")
+# The host tail of a sharded call, which a local mesh's caller runs once
+HOST_TAIL_STAGES = ("stitch", "serialize", "host_validate", "host_join", "host_check_bits")
+
+
+def exchange_stages(per_rank: list[dict]) -> dict:
+    """{stage: [ms per rank]} of EXCHANGE_STAGES that the ranks recorded."""
+    return {k: [round(st[k], 3) for st in per_rank] for k in EXCHANGE_STAGES
+            if all(k in st for st in per_rank)}
+
+
+# --- [multicard]: the sharded backend over several ranks in one process ---
+
+def max_rss() -> int:
+    """This process's peak RSS (``ru_maxrss``: the smoke is no spawned child)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def card_peaks(cards, fn):
+    """(fn(), its wall ms, {card index: its peak device memory above what
+    that card held before the call})."""
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.reset_peak_memory_stats(c)
+    base = {c: torch.cuda.memory_allocated(c) for c in cards}
+    t0 = time.perf_counter()
+    out = fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    for c in cards:
+        torch.cuda.synchronize(c)
+    return out, ms, {c: torch.cuda.max_memory_allocated(c) - base[c] for c in cards}
+
+
+def exchanged(op: str, stats: dict, world: int) -> list[int]:
+    """Per rank of a local mesh's last call: the bytes it read from the
+    other ranks card to card, counted from shapes. Compress: the int64
+    histogram. Decompress: the int32 exit states of every pass (passes +
+    the suffix sync's). Each rank fetches its own payload or symbols, and
+    the caller joins them on the host."""
+    if op == "compress":
+        return [256 * 8 * (world - 1)] * world
+    return [(r["passes"] + 1) * 4 * r["lanes"] * (world - 1) for r in stats["ranks"]]
+
+
+def mesh_op(label: str, op: str, fn, want: bytes, cards, world: int,
+            card: str) -> tuple[float, dict]:
+    """One call of a local mesh, exact against ``want``, with its per-card
+    peaks, then a recorded call for the ranks' stages; prints both with the
+    bytes each rank read from the others. Returns (wall ms, peaks)."""
+    got, ms, peaks = card_peaks(cards, fn)
+    require(got == want, f"{label} {op}: result differs")
+    with trace.record_stages() as caller:
+        fn()
+    stats = last_stats(op)
+    ranks = stats["ranks"]
+    require(len(ranks) == world, f"{label} {op}: {len(ranks)} ranks, want {world}")
+    line = f"[multicard] {label} {op}: {'.et == host' if op == 'compress' else 'exact'}, " \
+           f"{ms:.3f} ms one call, peak device B per card {peaks}"
+    if op != "compress":
+        passes = [r["passes"] for r in ranks]
+        require(len(set(passes)) == 1, f"{label} {op}: passes differ {passes}")
+        line += f", fixed-point passes per rank {passes}"
+    tail = {k: round(v, 3) for k, v in caller.items() if k in HOST_TAIL_STAGES}
+    print(line + f", stage ms per rank {exchange_stages([r['stages'] for r in ranks])}, host "
+          f"tail ms (once) {tail}, bytes read card to card from the other ranks per rank "
+          f"{exchanged(op, stats, world)} | {card}", flush=True)
+    return ms, peaks
+
+
+def mesh_calls(mesh, data_of: dict, blobs: dict, cases) -> list:
+    """(name, op, the local mesh's call, the device backend's same call,
+    its result) of each op of ``cases`` (name, routes): the compress, then
+    the decompress through each route; ``mesh`` a Mesh, or None for
+    ``backend="sharded"`` through the public API."""
+    calls = []
+    for name, routes in cases:
+        data, blob = data_of[name], blobs[name]
+        calls.append((name, "compress",
+                      (lambda d=data: et.compress(d, backend="sharded")) if mesh is None
+                      else (lambda d=data: pdist.compress_sharded(d, mesh)),
+                      lambda d=data: et.compress(d, backend="device"), blob))
+        for op in routes:
+            calls.append((name, op,
+                          (lambda b=blob, op=op: et.decompress(b, backend="sharded", expand=op))
+                          if mesh is None else
+                          (lambda b=blob, op=op: pdist.decompress_sharded(b, mesh, expand=op)),
+                          lambda b=blob, op=op: et.decompress(b, backend="device", expand=op),
+                          data))
+    return calls
+
+
+def mesh_round_trips(label: str, mesh, cards, data_of: dict, blobs: dict, cases,
+                     card: str) -> None:
+    """The ops of ``mesh_calls`` over a local mesh, exact, each op's wall
+    beside the device backend's same call (warm median of 3 below 20 MB,
+    else one call; the device calls outside the path's counts)."""
+    world = len(cards) if mesh is None else mesh.world
+    for name, op, fn, dev_fn, want in mesh_calls(mesh, data_of, blobs, cases):
+        ms, _ = mesh_op(f"{label} {name}", op, fn, want, cards, world, card)
+        iters = 3 if len(data_of[name]) < 20 * MB else 1
+        warm = wall_ms(fn, iters) if iters > 1 else ms
+        with uncounted():
+            dev = wall_ms(dev_fn, iters)
+        print(f"[multicard] {label} {name} {op}: local mesh {warm:.3f} ms, device backend "
+              f"{dev:.3f} ms ({'warm median of 3' if iters > 1 else 'one call each'}) "
+              f"| {card}", flush=True)
+
+
+def last_stats(op: str) -> dict:
+    """The sharded codec's stats of its last ``op`` ("compress", else a
+    decompress route)."""
+    return pdist.last_encode_stats if op == "compress" else pdist.last_decode_stats
+
+
+def multicard_large(cards, card: str, merge) -> None:
+    """[large]'s two configurations over the local mesh of ``cards``
+    (``backend="sharded"``): compress, then decompress through each of
+    MC_LARGE_ROUTES, each exact, with its per-card peaks; the device
+    backend's same calls beside, once each, outside the path's counts; the
+    process's peak RSS. Then each op once more with every kernel held
+    against its plain version at the rank slices' shapes
+    (``shadow_checked``)."""
+    for cfg in lg.CONFIGS:
+        t0 = time.perf_counter()
+        data = make_corpus(cfg.kind, cfg.n_bytes)
+        ref = et.compress(data, backend="host")
+        body = len(ref) - parse_header(ref).body_start
+        lanes = -(-body // decode8.DEFAULT_CHUNK_BYTES)
+        per_rank = -(-lanes // len(cards))
+        print(f"[multicard] {cfg.name}: {len(data)} B, body {body} B, {lanes} lanes, {per_rank} "
+              f"per rank of {len(cards)} ({per_rank * decode8.DEFAULT_CHUNK_BYTES} B each, "
+              f"untiled below {pdist._INT32_SAFE_BODY}) | {card}", flush=True)
+        label = f"local mesh of {len(cards)} cards {cfg.name}"
+        walls, calls = {}, []
+        for op in ("compress", *MC_LARGE_ROUTES):
+            if op == "compress":
+                fn, dev_fn, want = (lambda: et.compress(data, backend="sharded"),
+                                    lambda: et.compress(data, backend="device"), ref)
+            else:  # op bound now: the kernel checks call fn again after the loop
+                fn, dev_fn, want = (
+                    lambda op=op: et.decompress(ref, backend="sharded", expand=op),
+                    lambda op=op: et.decompress(ref, backend="device", expand=op), data)
+            got, ms, peaks = card_peaks(cards, fn)
+            require(got == want, f"{label} {op}: result differs")
+            del got
+            stats = last_stats(op)
+            if op != "compress":
+                passes = [r["passes"] for r in stats["ranks"]]
+                require(len(set(passes)) == 1 and "passes" in stats,
+                        f"{label} {op}: passes {passes}, not the untiled rank decode")
+            with uncounted():
+                dev_got, dev_ms, dev_peaks = card_peaks([0], dev_fn)
+            require(dev_got == want, f"{cfg.name} device {op}: result differs")
+            del dev_got
+            walls[op] = (ms, dev_ms)
+            calls.append((op, fn, want))
+            print(f"[multicard] {label} {op}: exact, {ms:.1f} ms ({cfg.n_bytes / ms / 1e3:.1f} "
+                  f"MB/s), peak device B per card {peaks}"
+                  + (f", fixed-point passes per rank {passes}" if op != "compress" else "")
+                  + f", bytes read card to card from the other ranks per rank "
+                  f"{exchanged(op, stats, len(cards))} | device backend "
+                  f"{dev_ms:.1f} ms, peak {dev_peaks[0]} B | peak RSS {max_rss()} B | {card}",
+                  flush=True)
+        shadow_checked(label, calls, merge, card)
+        del data, ref, calls
+        gc.collect()
+        for c in cards:
+            with torch.cuda.device(c):
+                torch.cuda.empty_cache()
+        print(f"[multicard] {cfg.name}: {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+
+
+def card_kernel_checks(text: bytes, blob: bytes, cards, show, merge) -> None:
+    """On each card, each kernel against its plain version at the 5.2 MB
+    text's shapes (the [kernels] helpers, on that card as the current
+    device), outside the path's counts; every error merged into the JSON
+    line's."""
+    for c in cards:
+        t0 = time.perf_counter()
+        with torch.cuda.device(c), uncounted():
+            xs, tables, n_valid, lanes = body_cols(text)
+            checks = [(cuda_fsm8.sync_pass, sync_check(xs, tables.next_state)),
+                      (cuda_fsm8.fused_pass, fused_check(xs, tables, n_valid, lanes, True)),
+                      (cuda_fsm8.emit_pass, emit_check(xs, tables.next_state))]
+            res, pk = pack_check(text, blob)
+            checks.append((cuda_pack.pack_blocks, res))
+            sub = plane_sub_for(DEFAULT_BLOCK_BYTES)
+            cap = plane_cap_g(int(grouped_counts_plane(pk[1]).max()), DEFAULT_BLOCK_BYTES)
+            checks.append((cuda_compact.compact_rows, compact_check(
+                pk[0].view(torch.int32).t().contiguous(), pk[1].t().contiguous(), sub, cap)))
+            for fn, split in ((cuda_fsm8.expand_pass_split, True), (cuda_fsm8.expand_pass, False)):
+                res, cres, _, _ = expand_check(blob, split)
+                checks += [(fn, res), (cuda_compact.compact_rows, cres)]
+            del xs, tables, pk
+            torch.cuda.empty_cache()
+        for fn, res in checks:
+            merge(fn, res)
+            show(f"cuda:{c} {KERNELS[fn][0]}, text 5.2 MB shapes", res, "multicard")
+        print(f"[multicard] cuda:{c}: all seven kernels equal their plain versions, "
+              f"{time.perf_counter() - t0:.1f} s | {card_of(c)}", flush=True)
+
+
+def card_of(c: int) -> str:
+    """nvidia-smi's ``name, power.limit`` of card ``c``."""
+    return subprocess.run(
+        ["nvidia-smi", f"--id={c}", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def multicard_phase(card: str, data_of: dict, blobs: dict, show, merge,
+                    all_card_checks: bool = False) -> dict:
+    """[multicard] (see the module docstring): run through ``run_path`` with
+    all seven kernels; returns the path's launch counts. Then each local
+    mesh's calls once more with every kernel held against its plain version
+    at the rank slices' shapes (at [large]'s configurations inside the
+    path's run, outside its counts). ``all_card_checks``: also hold the
+    kernels against their plain versions at the 5.2 MB text's shapes on
+    every card, one card included (the phase alone has no [kernels])."""
+    phase_t0 = time.perf_counter()
+    n = min(torch.cuda.device_count(), MC_MAX_CARDS)
+    cards = list(range(n))
+    shared = make_mesh(devices=["cuda:0", "cuda:0"])
+    mesh = None if n == torch.cuda.device_count() else make_mesh(n)
+    per_card = {}
+
+    def drive():
+        mesh_round_trips("local mesh of 2 ranks on cuda:0", shared, [0], data_of, blobs,
+                         MC_CASES, card)
+        if n < 2:
+            print(f"[multicard] the cross-card half needs 2 or more cards: this process sees "
+                  f"{torch.cuda.device_count()} | {card}", flush=True)
+            return
+        for c in cards:
+            print(f"[multicard] cuda:{c}: {card_of(c)}", flush=True)
+        if mesh is None:
+            for name, want in (("text 5.2 MB", "host"), ("text 100 MB", "sharded")):
+                picks = (api._pick_backend(None, len(data_of[name])),
+                         api._pick_backend(None, len(blobs[name])))
+                require(picks == (want, want), f"auto picks {picks} at {name}, want {want}")
+            require(et.decompress(blobs["text 100 MB"]) == data_of["text 100 MB"],
+                    "auto (sharded) text 100 MB round trip differs")
+            require(len(pdist.last_decode_stats["ranks"]) == n, "auto's mesh is not every card")
+            print(f"[multicard] auto picks host at 5.2 MB and sharded at 100 MB over {n} cards; "
+                  f"its 100 MB round trip exact | {card}", flush=True)
+        mesh_round_trips(f"local mesh of {n} cards", mesh, cards, data_of, blobs, MC_CASES,
+                         card)
+        multicard_large(cards, card, merge)
+        os.environ.setdefault("NCCL_DEBUG", "WARN")
+        for world in sorted({2, n}):
+            run_world(card, world, "nccl", NCCL_CASES, NCCL_ROUTES, "[multicard]",
+                      NCCL_TIMEOUT_S)
+
+    counts = run_path("multicard", drive)
+    for fn in KERNELS:
+        per_card[KERNELS[fn][0]] = {f"cuda:{c}": fn.launches_on[c] for c in sorted(fn.launches_on)}
+    print(f"[multicard] local-mesh launches per card: {per_card} | {card}", flush=True)
+    idle = [c for c in cards if not any(v.get(f"cuda:{c}", 0) for v in per_card.values())]
+    require(not idle, f"[multicard] cards {idle} launched no kernel")
+    if n >= 2 or all_card_checks:
+        card_kernel_checks(data_of["text 5.2 MB"], blobs["text 5.2 MB"], cards, show, merge)
+    for label, m in (("local mesh of 2 ranks on cuda:0", shared),
+                     *([(f"local mesh of {n} cards", mesh)] if n >= 2 else [])):
+        shadow_checked(label, [(f"{name} {op}", fn, want) for name, op, fn, _, want
+                               in mesh_calls(m, data_of, blobs, MC_CASES)], merge, card)
+    print(f"[multicard] phase {time.perf_counter() - phase_t0:.1f} s, peak RSS {max_rss()} B "
+          f"| {card}", flush=True)
+    return counts
 
 
 def install_phase(card: str, text: bytes, text_blob: bytes) -> None:
@@ -822,6 +1292,7 @@ def run_path(path: str, drive) -> dict:
     fallback. Returns the launch counts of the run."""
     for fn in KERNELS:
         fn.launches = 0
+        fn.launches_on.clear()
     decode8.decode_host.calls = 0
     drive()
     counts = launch_counts()
@@ -885,12 +1356,37 @@ def profile_round_trip(data: bytes, card: str) -> None:
             print(f"[profile]   {e.key}: {_self_device_us(e) / 1e3:.3f} ms in {e.count} calls")
 
 
+def finish(card: str, smoke_t0: float, results: dict, launches: dict, **extra) -> int:
+    """The no-JAX check, the smoke's time, the JSON line of kernel results
+    (and ``extra`` keys), the card, and last the ``{"ok": true, ...}`` line."""
+    require("jax" not in sys.modules, "the port imported jax")
+    jax_package = [n for n in sys.modules if n.split(".")[0] == "entreepy_tpu"]
+    require(not jax_package, f"the port imported the JAX package: {jax_package}")
+    print(f"[smoke] {time.perf_counter() - smoke_t0:.1f} s, the build included | {card}")
+    print(json.dumps({"kernels": [
+        {"name": KERNELS[fn][0], "route": "cuda", "source": KERNELS[fn][1],
+         "replaces": KERNELS[fn][2], "launches": launches[fn], "max_abs_err": err,
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+         "library_ms": library}
+        for fn, (err, ms, plain_ms, bound, library) in results.items()
+    ], **extra}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv: list[str]) -> int:
-    argparse.ArgumentParser(
+    args = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
         epilog="ENTREEPY_PROFILE=<dir> adds a torch.profiler trace of a warm 5.2 MB "
                "round trip, written into <dir>",
-    ).parse_args(argv)
+    )
+    args.add_argument("--only", choices=["multicard"],
+                      help="run the device and build phases and this phase alone (the "
+                           "kernels then checked on every card)")
+    args = args.parse_args(argv)
     profile = bool(os.environ.get("ENTREEPY_PROFILE"))
     smoke_t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -918,11 +1414,6 @@ def main(argv: list[str]) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
 
-    # 3. kernels, at the shapes of the 5.2 MB text corpus
-    text = corpus("text", 5_200_000)
-    xs, tables, n_valid, lanes = body_cols(text)
-    print(f"[kernels] text body {n_valid} B: {lanes} lanes x {xs.shape[0]} B, "
-          f"m={tables.m} s={tables.s} fused table {tuple(tables.fused.shape)} | {card}")
     results = {}
 
     def show(label: str, res, tag: str = "kernels") -> None:
@@ -933,9 +1424,26 @@ def main(argv: list[str]) -> int:
 
     def merge(fn, res) -> None:
         """A kernel checked at further shapes: its worst error counts; the
-        JSON line keeps the first shapes' times."""
-        first = results.setdefault(fn, res)
+        JSON line keeps the first timed shapes' times (a check at the main
+        path's own shapes, ``shadow_checked``, has none)."""
+        first = results.get(fn)
+        if first is None or first[1] is None:
+            first = res if first is None else (first[0], *res[1:])
         results[fn] = (max(first[0], res[0]), *first[1:])
+
+    if args.only == "multicard":
+        data_of = {"text 5.2 MB": corpus("text", 5_200_000),
+                   **{f"{kind} 5 MB": corpus(kind, 5 * MB) for kind in ("skewed", "runheavy")},
+                   "text 100 MB": corpus("text", 100 * MB)}
+        blobs = {name: et.compress(data, backend="host") for name, data in data_of.items()}
+        launches = multicard_phase(card, data_of, blobs, show, merge, all_card_checks=True)
+        return finish(card, smoke_t0, {fn: results[fn] for fn in KERNELS}, launches)
+
+    # 3. kernels, at the shapes of the 5.2 MB text corpus
+    text = corpus("text", 5_200_000)
+    xs, tables, n_valid, lanes = body_cols(text)
+    print(f"[kernels] text body {n_valid} B: {lanes} lanes x {xs.shape[0]} B, "
+          f"m={tables.m} s={tables.s} fused table {tuple(tables.fused.shape)} | {card}")
 
     results[cuda_fsm8.sync_pass] = sync_check(xs, tables.next_state)
     results[cuda_fsm8.fused_pass] = fused_check(xs, tables, n_valid, lanes, True)
@@ -1127,7 +1635,8 @@ def main(argv: list[str]) -> int:
 
     def auto_path():
         require(api._h2d_fast(), "the host-to-device probe says the card's link is slow")
-        for name, want in (("text 5.2 MB", "host"), ("text 100 MB", "device")):
+        big = "sharded" if torch.cuda.device_count() > 1 else "device"  # the JAX rule
+        for name, want in (("text 5.2 MB", "host"), ("text 100 MB", big)):
             data, blob = data_of[name], e2e_blobs[name]
             picks = (api._pick_backend(None, len(data)), api._pick_backend(None, len(blob)))
             require(picks == (want, want), f"{name}: auto picks {picks}, want {want}")
@@ -1135,7 +1644,7 @@ def main(argv: list[str]) -> int:
             require(et.compress(data) == blob, f"{name}: auto .et differs")
             require(et.decompress(blob) == data, f"{name}: auto round trip differs")
             launched = sum(fn.launches for fn in KERNELS) - before
-            require((launched > 0) == (want == "device"),
+            require((launched > 0) == (want != "host"),
                     f"{name}: auto launched {launched} kernels, picking {want}")
             iters = 2 if len(data) > 20 * MB else 5
             enc, dec = wall_ms(lambda: et.compress(data), iters), \
@@ -1183,23 +1692,26 @@ def main(argv: list[str]) -> int:
         tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
                                  world_size=1, rank=0)
         try:
-            mesh = make_mesh()
+            mesh = make_mesh(device=DEV)
             require(mesh.group is not None and mesh.world == 1, f"world-1 mesh {mesh}")
             for name, routes in SHARDED_CASES:
                 data, blob = data_of[name], e2e_blobs[name]
-                require(et.compress(data, backend="sharded") == blob,
+                require(et.compress(data, backend="sharded", device=DEV) == blob,
                         f"sharded {name}: .et differs from the host backend's")
                 sharded[name, "compress"] = (
-                    wall_ms(lambda: et.compress(data, backend="sharded"), 3), None, None)
+                    wall_ms(lambda: et.compress(data, backend="sharded", device=DEV), 3),
+                    None, None)
                 for route in routes:
                     before = launch_counts()
-                    require(et.decompress(blob, backend="sharded", expand=route) == data,
+                    require(et.decompress(blob, backend="sharded", device=DEV,
+                                          expand=route) == data,
                             f"sharded {name} expand={route}: round trip differs")
                     passes = pdist.last_decode_stats["passes"]
                     print_launches(f"{name} sharded decompress expand={route}", before)
-                    ms = wall_ms(lambda: et.decompress(blob, backend="sharded", expand=route), 3)
+                    ms = wall_ms(lambda: et.decompress(blob, backend="sharded", device=DEV,
+                                                       expand=route), 3)
                     with trace.record_stages() as stages:
-                        et.decompress(blob, backend="sharded", expand=route)
+                        et.decompress(blob, backend="sharded", device=DEV, expand=route)
                     sharded[name, route] = (ms, passes, stages["allgather_exits"])
             sharded.update(big_calls("sharded"))
         finally:
@@ -1210,9 +1722,9 @@ def main(argv: list[str]) -> int:
         ``backend``: wall ms and peak device memory of each call."""
         name = "text 100 MB"
         data, blob = data_of[name], e2e_blobs[name]
-        got, enc, enc_peak = peak_call(lambda: et.compress(data, backend=backend))
+        got, enc, enc_peak = peak_call(lambda: et.compress(data, backend=backend, device=DEV))
         require(got == blob, f"{backend} {name}: .et differs from the host's")
-        got, dec, dec_peak = peak_call(lambda: et.decompress(blob, backend=backend))
+        got, dec, dec_peak = peak_call(lambda: et.decompress(blob, backend=backend, device=DEV))
         require(got == data, f"{backend} {name}: round trip differs")
         return {(name, "compress"): (enc, enc_peak), (name, "onepass"): (dec, dec_peak)}
 
@@ -1255,7 +1767,9 @@ def main(argv: list[str]) -> int:
         counts = run_path(path, drive)
         launches = {fn: launches[fn] + counts[fn] for fn in KERNELS}
     sharded_beside_device()
-    run_world2(card)
+    run_world(card, 2, "gloo", WORLD2_CASES, WORLD2_ROUTES, "[sharded]")
+    counts = multicard_phase(card, data_of, e2e_blobs, show, merge)
+    launches = {fn: launches[fn] + counts[fn] for fn in KERNELS}
     def large_kernels(cfg, data: bytes, blob: bytes) -> None:
         """[large]'s kernels against their plain versions at its shapes,
         outside the path's launch counts."""
@@ -1286,25 +1800,9 @@ def main(argv: list[str]) -> int:
                                          expand=route), 5, card)
     if profile:
         profile_round_trip(text, card)
-    require("jax" not in sys.modules, "the port imported jax")
-    jax_package = [n for n in sys.modules if n.split(".")[0] == "entreepy_tpu"]
-    require(not jax_package, f"the port imported the JAX package: {jax_package}")
-
-    print(f"[smoke] {time.perf_counter() - smoke_t0:.1f} s, the build included | {card}")
-    print(json.dumps({"kernels": [
-        {"name": KERNELS[fn][0], "route": "cuda", "source": KERNELS[fn][1],
-         "replaces": KERNELS[fn][2], "launches": launches[fn], "max_abs_err": err,
-         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-         "library_ms": library}
-        for fn, (err, ms, plain_ms, bound, library) in results.items()
-    ], "guard": {
+    return finish(card, smoke_t0, results, launches, guard={
         "instantiations": len(seen), "calls": len(guard_calls), "faults": len(faults),
-        "poisons": list(sk.POISONS), "calls_s": calls_s, "api_s": api_s, "card": card}}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+        "poisons": list(sk.POISONS), "calls_s": calls_s, "api_s": api_s, "card": card})
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -36,6 +37,7 @@ BUILD_TIMEOUT_S = 900
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_count_lock = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -177,6 +179,23 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = library().et_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def counted(wrapper):
+    """Give kernel wrapper ``wrapper`` its launch counts, both 0: ``launches``
+    and ``launches_on`` (a Counter by CUDA device index). Returns it."""
+    wrapper.launches = 0
+    wrapper.launches_on = collections.Counter()
+    return wrapper
+
+
+def count_launch(wrapper, device) -> None:
+    """One more launch of ``wrapper``'s kernel on ``device``, counted under a
+    lock: the ranks of a local mesh launch from several threads at once,
+    and ``+= 1`` on an attribute is a read-modify-write that loses counts."""
+    with _count_lock:
+        wrapper.launches += 1
+        wrapper.launches_on[device.index] += 1
 
 
 def require(t, dtype, name: str, device=None) -> None:

@@ -10,13 +10,15 @@ Backends with byte-identical output:
   to the CPU. ``decompress``'s ``expand`` picks the decode route on the
   device (see ``ops.decode8``): "onepass" (default), the two-pass "split"
   and "fused", or "host" (device state passes, host expansion).
-* ``sharded`` — the same kernels over the ranks of a ``torch.distributed``
-  process group, one device per rank (``entreepy_tpu_torch.parallel``):
-  blocks and chunks split over the ranks, whose collectives join them.
-  Every rank makes the same call and gets the same result. Without a group
-  it is one rank. ``device`` and ``expand`` as for ``device``; without a
-  CUDA device and without ``device="cpu"`` it raises
-  :class:`NoCudaDeviceError`.
+* ``sharded`` — the same kernels over the ranks of a mesh, one device per
+  rank (``entreepy_tpu_torch.parallel``): blocks and chunks split over the
+  ranks, whose collectives join them. In a ``torch.distributed`` process
+  group of more than one rank, this process is one rank on one card, and
+  every rank makes the same call and gets the same result. Otherwise one
+  process drives every card it sees, one rank per card, each in a thread
+  of its own (a local mesh; one card is one rank). ``device`` makes it one
+  rank on that device; ``expand`` as for ``device``. Without a CUDA device
+  and without ``device="cpu"`` it raises :class:`NoCudaDeviceError`.
 * ``host`` — the host codec (``format.compress_host`` /
   ``decompress_host``, the port's copy of the JAX package's, with its C++
   runtime in ``runtime``).
@@ -25,10 +27,10 @@ Backends with byte-identical output:
   when a one-shot host-to-device probe (cached per process, 60 s deadline)
   beats ``H2D_MIN_BYTES_PER_S``, else host. Without a CUDA device the probe
   is False, so auto runs on the host. ``ENTREEPY_DEVICE_MIN=<bytes>``
-  replaces the threshold at call time. Where the JAX package picks
-  ``sharded`` (more than one device), the port picks ``sharded`` in an
-  initialized process group of more than one rank, since one rank drives
-  one card; a single process that sees several cards stays on ``device``.
+  replaces the threshold at call time. At or above it, where the JAX
+  package picks ``sharded`` (more than one device), so does the port: in
+  an initialized process group of more than one rank, or in a process
+  that sees more than one card (``torch.cuda.device_count() > 1``).
 """
 
 from __future__ import annotations
@@ -116,7 +118,8 @@ def _device_min(n_bytes: int = 0) -> int:
 def _pick_backend(backend: str | None, n_bytes: int) -> str:
     """"host", "device" or "sharded" for a call of ``n_bytes`` (see the
     module docstring). Auto picks a device backend only when a CUDA device
-    exists."""
+    exists, and ``sharded`` where there is more than one device: the ranks
+    of a group, or the cards of this process."""
     if backend in ("device", "host", "sharded"):
         return backend
     if backend is not None:
@@ -125,8 +128,8 @@ def _pick_backend(backend: str | None, n_bytes: int) -> str:
         )
     if n_bytes < _device_min(n_bytes) or not torch.cuda.is_available():
         return "host"
-    group = dist.is_available() and dist.is_initialized()
-    return "sharded" if group and dist.get_world_size() > 1 else "device"
+    group = dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+    return "sharded" if group or torch.cuda.device_count() > 1 else "device"
 
 
 def _call_backend(backend: str | None, device, n_bytes: int) -> str:
@@ -161,8 +164,9 @@ def compress(data: bytes, *, strict: bool = True, backend: str | None = None,
     """Compress ``data`` into a complete .et file (magic, dict, packed body).
 
     backend: None (auto), "device", "sharded" or "host"; device: the torch
-    device of a device backend (default ``cuda``, for ``sharded`` this
-    rank's card; passing one alone selects ``device``). progress: optional
+    device of a device backend (default ``cuda``; for ``sharded``, one rank
+    on it, else every card of this process or, in a group, this rank's
+    card; passing one alone selects ``device``). progress: optional
     ``(pct, msg)`` callback.
     """
     choice = _call_backend(backend, device, len(data))

@@ -9,7 +9,8 @@ weak_scaling, multihost_bench, _mh_bench_worker}.py``, on the port alone
   backends' rows and, on the card, the kernels' figures (``probe``);
 * ``scale`` — the corpus-size sweep (``scale``), one JSON row per size,
   corpus, backend and route;
-* ``weak`` — weak scaling over gloo process worlds (``weak``).
+* ``weak`` — weak scaling over process worlds (``weak``): NCCL, one card
+  per rank, where the machine has the cards; else gloo on one device.
 
 Every run is on the card unless ``--device cpu`` is given; without a card
 that flag is required. The corpora (``corpus``) and the clocks and bounds

@@ -2,7 +2,7 @@
 
     python -m entreepy_tpu_torch.bench [--bytes N]                 # the headline
     python -m entreepy_tpu_torch.bench scale [--sizes 5,20,100] [--corpora ...]
-        [--backends auto,host,device] [--routes onepass] [--stages]
+        [--backends auto,host,device,sharded] [--routes onepass] [--stages]
     python -m entreepy_tpu_torch.bench weak [--per-rank-mb 3] [--worlds 1,2,4]
 
 Each takes ``--device cuda|cpu`` (default ``cuda``; without a card the run
@@ -51,10 +51,10 @@ def parser() -> argparse.ArgumentParser:
     sc.add_argument("--corpora", type=_csv(str), default=KINDS)
     sc.add_argument("--backends", type=_csv(str), default=scale.BACKENDS)
     sc.add_argument("--routes", type=_csv(str), default=("onepass",),
-                    help=f"the device decompress's routes, of {','.join(EXPAND_MODES)}")
+                    help=f"the device and sharded decompress's routes, of {','.join(EXPAND_MODES)}")
     sc.add_argument("--stages", action="store_true",
                     help="add each row's stages, from one more traced call each way")
-    wk = sub.add_parser("weak", help="weak scaling over gloo process worlds")
+    wk = sub.add_parser("weak", help="weak scaling over process worlds")
     common(wk, argparse.SUPPRESS)
     wk.add_argument("--per-rank-mb", type=float, default=3.0)
     wk.add_argument("--worlds", type=_csv(int), default=(1, 2, 4))

@@ -3,8 +3,11 @@
 Counterpart of ``benchmarks/scale.py``: its sizes (5, 20 and 100 MB by
 default; 100 MB of text is the enwik8-scale body, which the device decode
 streams in 2 tiles and the encode in 3) and its four corpus families
-(``corpus.make_corpus``), through the backends ``auto``, ``host`` and
-``device`` (the device decompress through each ``--routes`` route). Each row
+(``corpus.make_corpus``), through the backends ``auto``, ``host``,
+``device`` and ``sharded`` (the device and sharded decompress through each
+``--routes`` route). The ``sharded`` row is the local mesh over every card
+of the process (one rank per card; one rank with ``--device cpu``), its
+``ranks`` the mesh's, its peak device memory the first card's. Each row
 carries scale.py's keys (``corpus``, ``corpus_MB``, ``ratio``,
 ``encode_MBps``, ``decode_MBps``, the rates of the medians) and the median,
 min, max and count of the compress and the decompress calls
@@ -23,12 +26,22 @@ import json
 
 from .. import api, trace
 from ..api import compress, decompress
+from ..parallel import make_mesh
 from .corpus import KINDS, make_corpus
 from .headline import launch_counts, reset_launches
 from .timing import device_info, measure
 
 SIZES_MB = (5.0, 20.0, 100.0)
-BACKENDS = ("auto", "host", "device")
+BACKENDS = ("auto", "host", "device", "sharded")
+
+
+def _call_kwargs(backend: str, device) -> dict:
+    """The API's keyword arguments of a row's ``backend`` on ``device``."""
+    if backend == "device":
+        return {"backend": "device", "device": device}
+    if backend == "sharded":  # every card; on the CPU one rank of plain versions
+        return {"backend": "sharded", **({} if device.type == "cuda" else {"device": device})}
+    return {"backend": None if backend == "auto" else backend}
 
 
 def rows(kind: str, mb: float, backends, routes, stages: bool, device, text=None):
@@ -39,9 +52,8 @@ def rows(kind: str, mb: float, backends, routes, stages: bool, device, text=None
     for backend in backends:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r} (want one of {BACKENDS})")
-        kw = ({"backend": "device", "device": device} if backend == "device"
-              else {"backend": None if backend == "auto" else backend})
-        for route in routes if backend == "device" else (None,):
+        kw = _call_kwargs(backend, device)
+        for route in routes if backend in ("device", "sharded") else (None,):
             dkw = {**kw, "expand": route} if route else kw
             reset_launches()
             blob, enc = measure(lambda: compress(data, **kw), n, device)
@@ -52,6 +64,8 @@ def rows(kind: str, mb: float, backends, routes, stages: bool, device, text=None
                    "decode_MBps": n / dec["median_ms"] / 1e3,
                    "encode": enc, "decode": dec, "launches": launch_counts(),
                    "et_equals_host": blob == host_et, "round_trip": out == data}
+            if backend == "sharded":
+                row["ranks"] = make_mesh(device=kw.get("device")).world
             if backend == "auto":
                 row["picked"] = {"compress": api._pick_backend(None, n),
                                  "decompress": api._pick_backend(None, len(blob))}

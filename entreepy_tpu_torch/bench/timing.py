@@ -9,7 +9,9 @@
 * :func:`bound_ms` — the least time to move a function's tensors through
   the card's memory once;
 * :func:`peak_bytes` — the most device memory a block allocated above what
-  was held when it began.
+  was held when it began;
+* :func:`rss_peak` — the largest resident set of the process during a
+  block, sampled.
 
 This module imports the standard library only (torch where a function
 needs it): ``tools/torch_kernel_ab.py`` loads it by its path.
@@ -111,6 +113,39 @@ def peak_bytes(device):
     yield got
     torch.cuda.synchronize(device)
     got["bytes"] = torch.cuda.max_memory_allocated(device) - base
+
+
+def rss_now() -> int:
+    """The process's resident set now, bytes (/proc/self/statm)."""
+    import resource
+
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * resource.getpagesize()
+
+
+@contextlib.contextmanager
+def rss_peak(every_s: float = 0.01):
+    """Yield a dict whose ``"bytes"`` is, once the block ends, the largest
+    resident set of this process sampled every ``every_s`` seconds during
+    it (a daemon thread reads :func:`rss_now`). For a spawned worker:
+    ``ru_maxrss`` carries its parent's peak over fork and exec, and not
+    every kernel's /proc/self/status has ``VmHWM``."""
+    import threading
+
+    got, stop = {"bytes": rss_now()}, threading.Event()
+
+    def sample():
+        while not stop.wait(every_s):
+            got["bytes"] = max(got["bytes"], rss_now())
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield got
+    finally:
+        stop.set()
+        t.join()
+        got["bytes"] = max(got["bytes"], rss_now())
 
 
 # --- what a reading ran on ---

@@ -3,14 +3,16 @@ t(first world)/t(N).
 
 Counterpart of ``benchmarks/multihost_bench.py`` with its worker
 (``_weak_worker``). For each world size N it starts N processes
-(``python -m entreepy_tpu_torch.bench._weak_worker``) that join one gloo
-group through a TCP store on 127.0.0.1; each runs
+(``python -m entreepy_tpu_torch.bench._weak_worker``) that join one group
+through a TCP store on 127.0.0.1; each runs
 ``parallel.multihost.compress`` and ``decompress`` on ``per_rank_mb`` MB x N
 of text, so each rank holds the same work at every N. In the port one rank
 is one device, so the source's two virtual CPU devices per process
-(``mb_per_dev`` x 2 x N bytes) become one device per rank. On the card
+(``mb_per_dev`` x 2 x N bytes) become one device per rank. Where the
+machine has N cards, rank r runs on ``cuda:r`` in an NCCL group. Otherwise
 every rank runs on ``cuda:0`` (NCCL refuses two ranks on one GPU, so the
-group is gloo and its collectives copy through the host). Each rank is
+group is gloo and its collectives copy through the host), or on the CPU
+with ``--device cpu``, and the run prints ``CAVEAT``. Each rank is
 pinned to a core of its own where the process may use enough cores
 (``os.sched_setaffinity``, in place of the source's ``taskset``), with one
 torch thread.
@@ -20,7 +22,8 @@ devices in one process) has no counterpart: one rank drives one device, so
 its sweep over 1, 2, 4 and 8 devices becomes these process worlds.
 
 Rank 0's times are the row's (the codec's calls inside the workers, not
-their start-up); a world that fails a check or outlives ``WORLD_TIMEOUT_S``
+their start-up), with the group's backend, each rank's device and each
+rank's peak RSS; a world that fails a check or outlives ``WORLD_TIMEOUT_S``
 makes the exit code non-zero.
 """
 
@@ -48,14 +51,25 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def placement(n: int, device) -> tuple[str, list[str]]:
+    """(the group's backend, each rank's device) of a world of ``n`` ranks:
+    one card per rank under NCCL where the machine has ``n`` cards, else
+    every rank on ``cuda:0`` (or the CPU) under gloo."""
+    import torch
+
+    if device.type == "cuda" and torch.cuda.device_count() >= n:
+        return "nccl", [f"cuda:{r}" for r in range(n)]
+    return "gloo", ["cuda:0" if device.type == "cuda" else "cpu"] * n
+
+
 def run_world(n: int, per_rank_mb: float, device, text=None) -> tuple[list[dict], bool]:
     """The results of each rank of one world of ``n`` processes on
-    ``device`` (every rank on ``cuda:0`` on the card), and whether they
-    were pinned. Raises when a rank fails or the world outlives
-    WORLD_TIMEOUT_S; no rank outlives the call."""
+    ``device``, placed by :func:`placement`, and whether they were pinned.
+    Raises when a rank fails or the world outlives WORLD_TIMEOUT_S; no rank
+    outlives the call."""
     cores = sorted(os.sched_getaffinity(0))
     pinned = len(cores) >= n
-    rank_device = "cuda:0" if device.type == "cuda" else "cpu"
+    backend, rank_devices = placement(n, device)
     port = _free_port()
     env = {**os.environ,
            "PYTHONPATH": os.pathsep.join(filter(None, (str(PKG_PARENT),
@@ -65,8 +79,9 @@ def run_world(n: int, per_rank_mb: float, device, text=None) -> tuple[list[dict]
         procs = []
         try:
             for rank, log in enumerate(logs):
-                argv = [str(port), str(n), str(rank), str(per_rank_mb), rank_device,
-                        str(cores[rank] if pinned else -1), *([str(text)] if text else [])]
+                argv = [str(port), str(n), str(rank), str(per_rank_mb), rank_devices[rank],
+                        backend, str(cores[rank] if pinned else -1),
+                        *([str(text)] if text else [])]
                 with open(f"{log}.out", "w") as out, open(f"{log}.err", "w") as err:
                     procs.append(subprocess.Popen(
                         [sys.executable, "-m", "entreepy_tpu_torch.bench._weak_worker", *argv],
@@ -94,9 +109,11 @@ def run_world(n: int, per_rank_mb: float, device, text=None) -> tuple[list[dict]
 def main(device, worlds=(1, 2, 4), per_rank_mb: float = 3.0, text=None) -> int:
     from .timing import device_info
 
-    print(CAVEAT, file=sys.stderr)
+    if any(placement(n, device)[0] == "gloo" for n in worlds):
+        print(CAVEAT, file=sys.stderr)
     info, base, ok = device_info(device), None, True
     for n in worlds:
+        backend, rank_devices = placement(n, device)
         ranks, pinned = run_world(n, per_rank_mb, device, text)
         r0 = ranks[0]
         enc_s, dec_s = r0["encode"]["median_ms"] / 1e3, r0["decode"]["median_ms"] / 1e3
@@ -107,7 +124,8 @@ def main(device, worlds=(1, 2, 4), per_rank_mb: float = 3.0, text=None) -> int:
                "encode": r0["encode"], "decode": r0["decode"],
                "et_equals_host": all(r["et_equals_host"] for r in ranks),
                "round_trip": all(r["round_trip"] for r in ranks),
-               "pinned": pinned, "launches": r0["launches"],
+               "pinned": pinned, "launches": r0["launches"], "group": backend,
+               "rank_devices": rank_devices, "peak_rss": [r["peak_rss"] for r in ranks],
                "device": info}
         print(json.dumps(row), flush=True)
         ok = ok and row["et_equals_host"] and row["round_trip"]

@@ -6,9 +6,9 @@ long forms, the default output names, the size summary on stderr, the ``-d``
 dictionary dump and the progress bar. The parser, the naming, the help
 text's reference part and the dump are the port's own copies of the JAX
 package's; :func:`main` runs the port's ``api``. ``--backend`` takes
-``host``, ``device`` or ``sharded`` (the ranks of a ``torch.distributed``
-group, e.g. one process per card under ``torchrun``; one rank without a
-group). A backend that cannot run, such as a device backend without a
+``host``, ``device`` or ``sharded`` (in one process, every card it sees,
+one rank per card; in a ``torch.distributed`` group, e.g. one process per
+card under ``torchrun``, one rank per process). A backend that cannot run, such as a device backend without a
 CUDA device, exits 1 with ``error: ...``.
 """
 
@@ -52,8 +52,10 @@ Examples:
 HELP_TEXT = REFERENCE_HELP_TEXT + """
 PyTorch/CUDA extensions:
     --backend       force a codec backend: host | device | sharded
-                    (default: auto — device on a CUDA card for large inputs,
-                    sharded in a process group of more than one rank)
+                    (sharded: every CUDA card of this process, one rank
+                    per card; default: auto — for large inputs, sharded
+                    where there is more than one card or rank, else device
+                    on a CUDA card)
 """
 
 

@@ -51,6 +51,7 @@ def compact_rows_plain(wk: torch.Tensor, ek: torch.Tensor, sub: int, cap: int):
     return out[:, :cap].reshape(g * cap, lanes), e.sum(1, dtype=torch.int32)
 
 
+@_build.counted
 def compact_rows(wk: torch.Tensor, ek: torch.Tensor, sub: int, cap: int):
     """Kernel 4 (replaces ``compact_rows_pallas``); see
     :func:`compact_rows_plain`."""
@@ -68,8 +69,5 @@ def compact_rows(wk: torch.Tensor, ek: torch.Tensor, sub: int, cap: int):
             lanes, g, sub, cap, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "et_compact_rows")
-    compact_rows.launches += 1
+    _build.count_launch(compact_rows, plane.device)
     return plane, counts
-
-
-compact_rows.launches = 0

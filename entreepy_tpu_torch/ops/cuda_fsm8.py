@@ -6,7 +6,7 @@ two-pass expansions), whose headers say what bounds them and how they are
 laid out. Each public function dispatches on the device of its byte tensor:
 a CPU tensor runs the plain version beside it, a CUDA tensor launches the
 kernel or raises. A wrapper counts its kernel launches in its ``launches``
-attribute. The expansions' states must be below the table's S, as the emit
+attribute, and by CUDA device index in ``launches_on`` (``_build.count_launch``). The expansions' states must be below the table's S, as the emit
 pass's are: the kernels index the tables with them unchecked.
 
 Layouts are the JAX package's: byte rows ``xs`` are ``[K, lanes]`` (one lane
@@ -78,6 +78,7 @@ def sync_pass_plain(xs: torch.Tensor, next_state: torch.Tensor,
     return state.int()
 
 
+@_build.counted
 def sync_pass(xs: torch.Tensor, next_state: torch.Tensor,
               entries: torch.Tensor) -> torch.Tensor:
     """Kernel 1 (replaces ``sync_pass_pallas8``); see :func:`sync_pass_plain`."""
@@ -93,11 +94,8 @@ def sync_pass(xs: torch.Tensor, next_state: torch.Tensor,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "et_sync_pass")
-    sync_pass.launches += 1
+    _build.count_launch(sync_pass, exits.device)
     return exits
-
-
-sync_pass.launches = 0
 
 
 def emit_pass_plain(xs: torch.Tensor, next_state: torch.Tensor,
@@ -114,6 +112,7 @@ def emit_pass_plain(xs: torch.Tensor, next_state: torch.Tensor,
     return states, state.int()
 
 
+@_build.counted
 def emit_pass(xs: torch.Tensor, next_state: torch.Tensor, entries: torch.Tensor):
     """Kernel 5 (replaces ``emit_pass_pallas8``, whose four-states-per-word
     packing does not come across); see :func:`emit_pass_plain`."""
@@ -130,11 +129,8 @@ def emit_pass(xs: torch.Tensor, next_state: torch.Tensor, entries: torch.Tensor)
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "et_emit_pass")
-    emit_pass.launches += 1
+    _build.count_launch(emit_pass, states.device)
     return states, exits
-
-
-emit_pass.launches = 0
 
 
 def _split_width(t_split: torch.Tensor, mt: int) -> int:
@@ -174,6 +170,7 @@ def _require_expand(xs, states, table, name: str) -> None:
                          f"table {tuple(table.shape)}")
 
 
+@_build.counted
 def expand_pass_split(xs: torch.Tensor, states: torch.Tensor, t_split: torch.Tensor,
                       m: int, mt: int) -> torch.Tensor:
     """Kernel 6 (replaces ``expand_pass_split_pallas8``); see
@@ -195,11 +192,8 @@ def expand_pass_split(xs: torch.Tensor, states: torch.Tensor, t_split: torch.Ten
             out.data_ptr(), k, lanes, pitch, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "et_expand_split_pass")
-    expand_pass_split.launches += 1
+    _build.count_launch(expand_pass_split, out.device)
     return out[:, :, :lanes]
-
-
-expand_pass_split.launches = 0
 
 
 def expand_pass_plain(xs: torch.Tensor, states: torch.Tensor, t_exp: torch.Tensor,
@@ -232,6 +226,7 @@ def expand_vector_table(t_exp: torch.Tensor, m: int) -> torch.Tensor:
     return vec
 
 
+@_build.counted
 def expand_pass(xs: torch.Tensor, states: torch.Tensor, t_exp: torch.Tensor,
                 m: int, vec: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel 7 (replaces ``expand_pass_pallas8``); see
@@ -262,11 +257,8 @@ def expand_pass(xs: torch.Tensor, states: torch.Tensor, t_exp: torch.Tensor,
             k, lanes, pitch, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "et_expand_pass")
-    expand_pass.launches += 1
+    _build.count_launch(expand_pass, out.device)
     return out[:, :, :lanes]
-
-
-expand_pass.launches = 0
 
 
 def fused_pass_plain(xs: torch.Tensor, t_fused: torch.Tensor,
@@ -327,6 +319,7 @@ def fused_chain_table(t_fused: torch.Tensor, s: int, mt: int) -> torch.Tensor:
     return nxt.to(torch.uint8)
 
 
+@_build.counted
 def fused_pass(xs: torch.Tensor, t_fused: torch.Tensor, entries: torch.Tensor,
                m: int, mt: int, s: int, packed: bool = False,
                n_valid: int | None = None):
@@ -358,8 +351,5 @@ def fused_pass(xs: torch.Tensor, t_fused: torch.Tensor, entries: torch.Tensor,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "et_fused_pass")
-    fused_pass.launches += 1
+    _build.count_launch(fused_pass, out.device)
     return out, exits
-
-
-fused_pass.launches = 0

@@ -100,6 +100,7 @@ def pack_blocks_scan_plain(blocks: torch.Tensor, valid: torch.Tensor,
     return words, emitted, acc, (total & 31).int()
 
 
+@_build.counted
 def pack_blocks(blocks: torch.Tensor, valid: torch.Tensor, codes: torch.Tensor,
                 lengths: torch.Tensor):
     """Kernel 3 (replaces ``pack_blocks_pallas``); see
@@ -129,8 +130,5 @@ def pack_blocks(blocks: torch.Tensor, valid: torch.Tensor, codes: torch.Tensor,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(rc, "et_pack_blocks")
-    pack_blocks.launches += 1
+    _build.count_launch(pack_blocks, words.device)
     return words.t(), emitted.t(), acc, nbits
-
-
-pack_blocks.launches = 0

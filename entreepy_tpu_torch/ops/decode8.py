@@ -33,6 +33,7 @@ the int32 position bound.
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -342,8 +343,10 @@ def assemble_symbols(parts, lane_tots, w_invs, n_symbols, table, n_body) -> np.n
 def decode_host(buf: np.ndarray, table: CodeTable, n_symbols: int) -> np.ndarray:
     """The exact serial host decoder, for streams whose chunk self-sync does
     not converge in MAX_SYNC_PASSES (pathologically periodic streams).
-    ``decode_host.calls`` counts its uses."""
-    decode_host.calls += 1
+    ``decode_host.calls`` counts its uses (under a lock: the ranks of a
+    local mesh call it from several threads)."""
+    with _calls_lock:
+        decode_host.calls += 1
     lut = _fmt.build_decode_lut(table)
     out = _fmt.unpack_body_host(buf.tobytes(), lut, n_symbols)
     _check_stream_bits(out, table.lengths, buf.size)
@@ -351,6 +354,7 @@ def decode_host(buf: np.ndarray, table: CodeTable, n_symbols: int) -> np.ndarray
 
 
 decode_host.calls = 0
+_calls_lock = threading.Lock()
 
 
 def _body_buf(body: bytes | np.ndarray) -> np.ndarray:
@@ -416,6 +420,10 @@ def decode_body_device_full(
 
 @functools.cache
 def _copy_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream of ``device``'s fetches. Ranks of a local mesh on one
+    card share it: each queues its wait, its copies and its event in that
+    order, so a rank's event may also cover another rank's copies and ends
+    no earlier than its own."""
     return torch.cuda.Stream(device)
 
 

@@ -1,10 +1,22 @@
-"""Sharded compress and decompress over the ranks of a process group.
+"""Sharded compress and decompress over the ranks of a mesh.
 
 Counterpart of ``entreepy_tpu/parallel/dist.py``: the JAX package's 1-D mesh
-(``shard_map`` over one axis) is the ranks of a ``torch.distributed`` group
-(:class:`~.mesh.Mesh`), one device per rank; ``psum`` is :func:`_all_reduce`
-and ``all_gather``/``process_allgather`` are :func:`_all_gather`, in rank
+(``shard_map`` over one axis) is a :class:`~.mesh.Mesh`, one device per
+rank: the ranks of a ``torch.distributed`` group, or a local mesh of one
+process's devices. ``psum`` is :func:`_all_reduce` and
+``all_gather``/``process_allgather`` are :func:`_all_gather`, in rank
 order. Every rank passes the same input and gets the same output (SPMD).
+
+One rank program serves both kinds; it ends where every rank's part (the
+payloads, the symbols) is on the host, and the host tail that turns the
+parts into the result runs once per process, in the caller. On a group's
+mesh each process runs the rank program once and gathers every rank's part
+(:func:`_to_host`). On a local mesh :func:`compress_sharded` and
+:func:`decompress_sharded` run it once per rank, each rank in a host thread
+of its own, bound to its card (``torch.cuda.set_device``), each fetching
+its own part; the two collectives inside it meet at a barrier
+(:class:`_Meet`), a CPU tensor exchanged on the host and a CUDA tensor
+copied card to card, and the caller joins the parts (:func:`_join`).
 
 Encode (:func:`compress_sharded`): the input's blocks are dealt round-robin
 over the ranks (rank r's lane j holds block ``j * world + r``), so every
@@ -13,7 +25,7 @@ its blocks on its device; one all-reduce makes it global, and every rank
 builds the same code table. Each rank packs its blocks (the pack kernel)
 and compacts the words into one flat stream on its device
 (``bitpack.compact_payload_flat``); the flat streams, word counts and bit
-lengths are gathered and every rank stitches them back in block order.
+lengths reach the host, and the process stitches them back in block order.
 
 Decode (:func:`decompress_sharded`): the body's chunks (lanes) are padded to
 a multiple of the world, and rank r owns lanes ``[r*L, (r+1)*L)``. The
@@ -21,8 +33,9 @@ suffix sync pass and the fixed-point passes run on each rank's lanes, with
 one all-gather of the exit states per pass, so the entry chain spans every
 lane (``decode8._fixed_point``'s ``gather``). Then each rank expands and
 compacts its own lanes by the ``expand`` route, as ``decompress_device``
-does on one device, extracts its symbols on the host, and the per-lane
-metadata and the symbols are gathered in rank order. The routes are the
+does on one device, and extracts its symbols on the host; the per-lane
+metadata and the symbols of every rank, in rank order, are validated and
+joined once. The routes are the
 single-device ones; the JAX package's ``ENTREEPY_SHARDED_DEVICE_EXPAND``,
 ``ENTREEPY_EXPAND`` and ``ENTREEPY_FUSED_PACKED`` become the ``expand``
 argument and the one-pass rule m <= 3.
@@ -30,16 +43,23 @@ argument and the one-pass rule m <= 3.
 No rank raises before a collective that the others enter: a local fault
 (a compaction overflow poisons ``lane_tot`` to -1, a chunk's first invalid
 byte is its ``w_inv``) travels as gathered data, and the checks that raise
-run on the gathered values, on every rank alike.
+run on the gathered values, in the host tail. On a local mesh a rank
+that raises all the same aborts the barrier: every other rank stops at its
+next exchange instead of waiting, and the caller gets the first rank's
+error. ``LOCAL_TIMEOUT_S`` bounds any wait at the barrier.
 """
 
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import runtime
+from .. import runtime, trace
 from ..format.etformat import parse_header, serialize_header
 from ..format.fsm8 import ByteFsm, build_byte_fsm
 from ..format.hostcodec import _check_stream_bits
@@ -59,14 +79,124 @@ from ..utils.stitch import split_blocks, stitch_flat_payload, words_to_bytes
 from .mesh import Mesh, make_mesh
 
 # A rank's decode masks real bytes by lane-linear int32 positions within its
-# slice; a slice at or past this would wrap, so every rank then decodes the
-# whole body through the tile-local streaming decode instead.
+# slice; a slice at or past this would wrap, so the process then decodes the
+# whole body through the tile-local streaming decode instead, on its device
+# (a local mesh's first), once.
 _INT32_SAFE_BODY = 1 << 31
 
-# Diagnostics of the last call on this rank (the tests hold the encode's
-# fetch to the compressed size and the host route's state fetch to 1/world).
+# A rank of a local mesh waits at most this long at an exchange for the
+# others (a text-1GB rank's host tail takes tens of seconds between two).
+LOCAL_TIMEOUT_S = 600.0
+
+# Diagnostics of the last call: this rank's on a group's mesh; on a local
+# mesh rank 0's, with every rank's in rank order under "ranks" (each rank
+# returns its own; only the caller's thread writes these); empty after the
+# tiled escape. The tests hold the encode's fetch to the compressed size and
+# the host route's state fetch to 1/world.
 last_encode_stats: dict = {}
 last_decode_stats: dict = {}
+
+
+# --- the local mesh: one thread per rank ---
+
+class _Meet:
+    """Where the ranks of a local mesh exchange tensors: one slot per rank
+    and a barrier. :meth:`exchange` is the only place a rank waits for the
+    others."""
+
+    def __init__(self, world: int, timeout: float):
+        self.barrier = threading.Barrier(world, timeout=timeout)
+        self.slots: list = [None] * world
+
+    def exchange(self, t: torch.Tensor, rank: int, combine):
+        """``combine`` of every rank's ``t``, in rank order, each on this
+        rank's ``t``'s device: a CPU tensor as it is (no copy), a CUDA
+        tensor copied card to card where it lies on another card. Each
+        side's stream is synchronized before the barrier it meets: the
+        producer's, so that no copy reads ``t`` early, then this rank's
+        (the copies and ``combine``), so that no rank frees or overwrites
+        its ``t`` while another still reads it."""
+        if t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
+        self.slots[rank] = t
+        self.barrier.wait()
+        out = combine([p.to(t.device) for p in self.slots])
+        if t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
+        self.barrier.wait()
+        self.slots[rank] = None
+        return out
+
+
+def _spmd(mesh: Mesh, rank_fn, *args, **kwargs):
+    """``rank_fn(mesh, *args, **kwargs)`` -> (part, stats) as this process's
+    part of the mesh -> (the parts of this process's ranks in rank order,
+    the stats). On a group's mesh ``rank_fn`` runs once, and its part holds
+    every rank's data (it gathers them). On a local mesh it runs once per
+    rank, each in a thread bound to its device, each part holding that
+    rank's own data, for the caller to join (:func:`_join`); the stats are
+    rank 0's with every rank's under ``"ranks"`` (each with its
+    ``"stages"`` where the caller records them, the caller's record getting
+    each stage's slowest rank). A rank's error aborts the barrier and is
+    raised here, the lowest rank's first; no rank thread outlives the
+    call."""
+    if not mesh.local:
+        part, stats = rank_fn(mesh, *args, **kwargs)
+        return [part], stats
+    meet = _Meet(mesh.world, LOCAL_TIMEOUT_S)
+    caller = trace.current()
+    recording = caller is not None
+    results, errors = [None] * mesh.world, [None] * mesh.world
+
+    def rank_main(r: int) -> None:
+        dev = mesh.devices[r]
+        try:
+            if dev.type == "cuda":
+                torch.cuda.set_device(dev)
+            view = dataclasses.replace(mesh, rank=r, device=dev, devices=(), meet=meet)
+            with trace.record_stages() if recording else contextlib.nullcontext() as stages:
+                part, stats = rank_fn(view, *args, **kwargs)
+            results[r] = (part, {**stats, "stages": stages} if recording else stats)
+        except BaseException as e:  # handed to the caller, which raises it
+            errors[r] = e
+            meet.barrier.abort()
+
+    threads = [threading.Thread(target=rank_main, args=(r,), name=f"entreepy-rank-{r}",
+                                daemon=True) for r in range(mesh.world)]
+    for t in threads:
+        t.start()
+    try:
+        for t in threads:
+            t.join()
+    except BaseException:  # an interrupt of the caller: the ranks stop at their next exchange
+        meet.barrier.abort()
+        for t in threads:
+            t.join()
+        raise
+    first = next((e for e in errors
+                  if e is not None and not isinstance(e, threading.BrokenBarrierError)), None)
+    if first is not None:
+        raise first
+    if any(e is not None for e in errors):
+        raise TimeoutError(f"local mesh of {mesh.world} ranks: a rank waited more than "
+                           f"{LOCAL_TIMEOUT_S} s at an exchange")
+    ranks = [res[1] for res in results]
+    if recording:
+        for name in dict.fromkeys(k for st in ranks for k in st["stages"]):
+            caller[name] = caller.get(name, 0.0) + max(st["stages"].get(name, 0.0)
+                                                       for st in ranks)
+    return [res[0] for res in results], {**ranks[0], "ranks": ranks}
+
+
+def _join(parts: list) -> tuple:
+    """The parts of :func:`_spmd`, each a tuple of per-rank lists, joined
+    into one tuple of lists over every rank, in rank order."""
+    return tuple([x for part in parts for x in part[i]] for i in range(len(parts[0])))
+
+
+def _publish(stats: dict, got: dict) -> None:
+    stats.clear()
+    stats.update(got)
 
 
 # --- collectives: the only calls into torch.distributed ---
@@ -82,6 +212,9 @@ def _comm_device(mesh: Mesh) -> torch.device:
 
 def _all_reduce(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``t`` summed over the ranks, in place; at one rank ``t`` as it is."""
+    if mesh.meet is not None:
+        return t.copy_(mesh.meet.exchange(
+            t, mesh.rank, lambda parts: torch.stack(parts).sum(0, dtype=t.dtype)))
     if mesh.group is None or mesh.world == 1:
         return t
     comm = _comm_device(mesh)
@@ -93,7 +226,10 @@ def _all_reduce(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def _all_gather(t: torch.Tensor, mesh: Mesh, *, ragged: bool = False) -> list[torch.Tensor]:
     """Every rank's 1-D ``t``, in rank order, on ``t``'s device; at one rank
     ``[t]``. ``ragged``: the lengths differ per rank, so they are gathered
-    first and each rank's ``t`` is padded to the largest."""
+    first and each rank's ``t`` is padded to the largest (a local mesh
+    exchanges each as it is)."""
+    if mesh.meet is not None:
+        return mesh.meet.exchange(t, mesh.rank, list)
     if mesh.group is None or mesh.world == 1:
         return [t]
     comm = _comm_device(mesh)
@@ -110,21 +246,59 @@ def _all_gather(t: torch.Tensor, mesh: Mesh, *, ragged: bool = False) -> list[to
     return [p[:n].to(t.device) for p, n in zip(parts, sizes)]
 
 
+def _to_host(t: torch.Tensor, mesh: Mesh, *, ragged: bool = False) -> list[np.ndarray]:
+    """Every rank's 1-D ``t`` on the host, in rank order, through
+    :func:`_all_gather`; on a local mesh's rank only its own, fetched in its
+    thread (the caller joins the ranks' with :func:`_join`)."""
+    parts = [t] if mesh.meet is not None else _all_gather(t, mesh, ragged=ragged)
+    return [p.cpu().numpy() for p in parts]
+
+
 # --- encode ---
 
 def compress_sharded(data: bytes, mesh: Mesh | None = None, *, strict: bool = True,
                      block_bytes: int = DEFAULT_BLOCK_BYTES) -> bytes:
-    """bytes -> complete .et file, block-parallel over the mesh's ranks;
-    byte-identical to the single-device and host codecs. Every rank passes
-    the same ``data`` and gets the same file."""
+    """bytes -> complete .et file, block-parallel over the mesh's ranks
+    (default: :func:`~.mesh.make_mesh`, every card of this process outside a
+    group); byte-identical to the single-device and host codecs. Every rank
+    passes the same ``data`` and gets the same file. The blocks are split,
+    and the payloads stitched and serialized, once per process."""
     mesh = mesh or make_mesh()
-    world, dev = mesh.world, mesh.device
+    world = mesh.world
     arr = np.frombuffer(data, dtype=np.uint8)
     blocks, valid = split_blocks(arr, block_bytes)
     n_pad = -(-blocks.shape[0] // world) * world  # empty blocks even out the ranks
-    blocks = np.concatenate([blocks, np.zeros((n_pad - blocks.shape[0], block_bytes), np.uint8)])
-    valid = np.concatenate([valid, np.zeros(n_pad - valid.size, np.int32)])
-    lanes = n_pad // world
+    if n_pad > blocks.shape[0]:
+        blocks = np.concatenate([blocks, np.zeros((n_pad - blocks.shape[0], block_bytes),
+                                                  np.uint8)])
+        valid = np.concatenate([valid, np.zeros(n_pad - valid.size, np.int32)])
+    parts, stats = _spmd(mesh, _compress_rank, blocks, valid, strict=strict)
+    tables, flats, nw, bl = _join(parts)
+    flats = [f.view(np.uint32) for f in flats]
+    nw, bl = np.stack(nw).astype(np.int64), np.stack(bl).astype(np.int64)
+    sizes = np.array([f.size for f in flats], dtype=np.int64)
+    stats.update(fetched_bytes=int(sizes.sum()) * 4 + nw.size * 4 + bl.size * 4,
+                 payload_bits=int(bl.sum()))
+    with phase("stitch"):
+        # nw/bl are [rank, lane]: rank r's words start where the ranks before
+        # it end, its lanes back to back; block j*world + r is entry [r, j],
+        # so the transpose puts them in block order
+        offs = (np.cumsum(sizes) - sizes)[:, None] + np.cumsum(nw, axis=1) - nw
+        words_out, total_bits = stitch_flat_payload(
+            np.concatenate(flats), nw.T.reshape(-1), bl.T.reshape(-1), offs=offs.T.reshape(-1))
+    with phase("serialize"):
+        out = serialize_header(tables[0], arr.size) + words_to_bytes(words_out, total_bits)
+    _publish(last_encode_stats, stats)
+    return out
+
+
+def _compress_rank(mesh: Mesh, blocks: np.ndarray, valid: np.ndarray, *, strict: bool):
+    """One rank's :func:`compress_sharded` over the dealt ``blocks`` ->
+    (([code table], flat payloads, word counts, bit lengths: each a list
+    per rank, :func:`_to_host`), its stats)."""
+    world, dev = mesh.world, mesh.device
+    block_bytes = blocks.shape[1]
+    lanes = blocks.shape[0] // world
     with phase("input_upload", lanes * block_bytes):
         mine = upload(np.ascontiguousarray(blocks[mesh.rank::world]), dev)
         my_valid = valid[mesh.rank::world]
@@ -143,26 +317,10 @@ def compress_sharded(data: bytes, mesh: Mesh | None = None, *, strict: bool = Tr
     with phase("device_compact"):
         flat, nwords, bit_lens = compact_payload_flat(words, emitted, acc, nbits, cap_g)
     with phase("gather_payload"):
-        flats = [f.cpu().numpy().view(np.uint32)
-                 for f in _all_gather(flat.view(torch.int32), mesh, ragged=True)]
-        nw = torch.stack(_all_gather(nwords, mesh)).cpu().numpy().astype(np.int64)
-        bl = torch.stack(_all_gather(bit_lens, mesh)).cpu().numpy().astype(np.int64)
-    sizes = np.array([f.size for f in flats], dtype=np.int64)
-    last_encode_stats.clear()
-    last_encode_stats.update(
-        fetched_bytes=int(sizes.sum()) * 4 + nw.size * 4 + bl.size * 4,
-        dense_bytes=world * (words.numel() * 4 + emitted.numel()),
-        payload_bits=int(bl.sum()),
-    )
-    with phase("stitch"):
-        # nw/bl are [rank, lane]: rank r's words start where the ranks before
-        # it end, its lanes back to back; block j*world + r is entry [r, j],
-        # so the transpose puts them in block order
-        offs = (np.cumsum(sizes) - sizes)[:, None] + np.cumsum(nw, axis=1) - nw
-        words_out, total_bits = stitch_flat_payload(
-            np.concatenate(flats), nw.T.reshape(-1), bl.T.reshape(-1), offs=offs.T.reshape(-1))
-    with phase("serialize"):
-        return serialize_header(table, arr.size) + words_to_bytes(words_out, total_bits)
+        part = ([table], _to_host(flat.view(torch.int32), mesh, ragged=True),
+                _to_host(nwords, mesh), _to_host(bit_lens, mesh))
+    return part, dict(payload_bytes=flat.numel() * 4,
+                      dense_bytes=world * (words.numel() * 4 + emitted.numel()))
 
 
 # --- decode ---
@@ -223,18 +381,15 @@ def _expand_chunks(states: np.ndarray, body: np.ndarray, fsm: ByteFsm, chunk_byt
     return per_lane, w_inv, sy[live]
 
 
-def _assemble(mesh: Mesh, lane_tot, w_inv, syms, n_symbols: int, table, n_body: int):
-    """Every rank's (lane_tot, w_inv) and symbols gathered in rank order: the
+def _assemble(metas: list, syms: list, n_symbols: int, table, n_body: int) -> np.ndarray:
+    """Every rank's (lane_tot, w_inv) and symbols, in rank order: the
     serial-exact accept/reject over every lane, the symbols joined and
     trimmed to ``n_symbols``, the exact-bit check."""
     with phase("host_validate"):
-        meta = torch.from_numpy(np.concatenate([lane_tot, w_inv]))
-        parts = [p.reshape(2, -1) for p in _all_gather(meta, mesh)]
-        g = torch.cat(parts, dim=1).numpy()
+        g = np.concatenate([m.reshape(2, -1) for m in metas], axis=1)
         decode8.validate_chunk_meta(g[0], g[1], n_symbols)
-    with phase("gather_symbols"):
-        out = torch.cat(_all_gather(torch.from_numpy(syms), mesh, ragged=True)).numpy()
-    out = out[:n_symbols]
+    with phase("host_join"):
+        out = np.concatenate(syms)[:n_symbols]
     if out.size < n_symbols:
         raise ValueError(f"bitstream ended early: decoded {out.size} of {n_symbols} symbols")
     with phase("host_check_bits"):
@@ -249,25 +404,42 @@ def decompress_sharded(et: bytes, mesh: Mesh | None = None, *,
     ranks through the ``expand`` route (``decode8.EXPAND_MODES``: "onepass",
     the two-pass "split" and "fused", or "host": each rank fetches only its
     own lanes' states, 1/world of the body, and expands them on the host).
-    Every rank passes the same file and gets the same bytes."""
+    The mesh defaults as in :func:`compress_sharded`. Every rank passes the
+    same file and gets the same bytes. The symbols are validated, joined
+    and checked once per process."""
     decode8.check_expand(expand)
     mesh = mesh or make_mesh()
-    dev = mesh.device
     hdr = parse_header(et)
     table, n = hdr.table, hdr.body_len
+    _publish(last_decode_stats, {})
     if n == 0:
         return b""
     buf = np.frombuffer(et, dtype=np.uint8)[hdr.body_start:]
     n_real_lanes = max(1, -(-buf.size // chunk_bytes))
-    lanes = -(-n_real_lanes // mesh.world)  # this rank's lanes; the rest is padding
+    lanes = -(-n_real_lanes // mesh.world)  # each rank's lanes; the rest is padding
     if lanes * chunk_bytes >= _INT32_SAFE_BODY:
-        return decode8.decode_body_device_tiled(buf, table, n, device=dev,
+        return decode8.decode_body_device_tiled(buf, table, n, device=mesh.device,
                                                 chunk_bytes=chunk_bytes).tobytes()
+    parts, stats = _spmd(mesh, _decompress_rank, buf, table, n, build_byte_fsm(table),
+                         n_real_lanes, lanes, chunk_bytes=chunk_bytes, expand=expand)
+    if parts[0] is None:  # decided on gathered values: every rank takes the serial decoder
+        out = decode8.decode_host(buf, table, n)
+    else:
+        out = _assemble(*_join(parts), n, table, buf.size)
+    _publish(last_decode_stats, stats)
+    return out.tobytes()
+
+
+def _decompress_rank(mesh: Mesh, buf: np.ndarray, table, n: int, fsm: ByteFsm,
+                     n_real_lanes: int, lanes: int, *, chunk_bytes: int, expand: str):
+    """One rank's :func:`decompress_sharded` of the body ``buf`` (``n``
+    symbols) over its ``lanes`` -> ((lane metadata, symbols: each a list
+    per rank, :func:`_to_host`), or None where the fixed point did not
+    converge; its stats)."""
+    dev = mesh.device
     lo = mesh.rank * lanes * chunk_bytes
     seg = buf[lo : lo + lanes * chunk_bytes]  # rank-local positions: seg.size bytes are real
-    fsm = build_byte_fsm(table)
     gather = _ExitGather(mesh)
-    last_decode_stats.clear()
     with phase("decode_tables"):
         if expand == "host":
             next_state = next_state_tensor(fsm, dev)
@@ -285,20 +457,16 @@ def decompress_sharded(et: bytes, mesh: Mesh | None = None, *,
         else:
             xs = cols.t().contiguous()
             states, unconverged = decode8.fsm8_decode(xs, next_state, n_real_lanes, gather)
-    last_decode_stats["passes"] = gather.calls - 1
-    if unconverged:  # decided on gathered values: every rank takes the serial decoder
-        return decode8.decode_host(buf, table, n).tobytes()
+    stats = {"passes": gather.calls - 1, "lanes": lanes}
+    if unconverged:
+        return None, stats
     if expand == "host":
         with phase("device_state_fetch", seg.size):
             st = states.t().contiguous().reshape(-1)[: seg.size].cpu().numpy()
         with phase("host_expand", n):
             lane_tot, w_inv, syms = _expand_chunks(st, seg, fsm, chunk_bytes, lanes)
-        last_decode_stats.update(
-            fetched_states_bytes=st.nbytes,
-            total_states_bytes=mesh.world * lanes * chunk_bytes,
-            local_symbols=int(syms.size),
-            n_symbols=n,
-        )
+        stats.update(fetched_states_bytes=st.nbytes,
+                     total_states_bytes=mesh.world * lanes * chunk_bytes)
     else:
         with phase("device_expand", n):
             if expand == "onepass":
@@ -308,4 +476,8 @@ def decompress_sharded(et: bytes, mesh: Mesh | None = None, *,
                                             tables.m)
             plane = decode8.lane_major(*plane)
         lane_tot, w_inv, syms = _plane_symbols(plane)
-    return _assemble(mesh, lane_tot, w_inv, syms, n, table, buf.size).tobytes()
+    stats.update(local_symbols=int(syms.size), n_symbols=n)
+    with phase("gather_symbols"):
+        part = (_to_host(torch.from_numpy(np.concatenate([lane_tot, w_inv])), mesh),
+                _to_host(torch.from_numpy(syms), mesh, ragged=True))
+    return part, stats

@@ -2,8 +2,10 @@
 
 Counterpart of ``entreepy_tpu/parallel/multihost.py``. The same sharded
 codec (``dist``) runs over the ranks of the default process group, one
-device per rank: NCCL between cards (``cuda:<rank % cards>``), gloo between
-processes on the host.
+device per rank: NCCL between cards (``cuda:<rank % cards>``, the card
+:func:`init` binds the process to), gloo between processes on the host.
+One process that drives several cards needs no group: it is a local mesh
+(``make_mesh()``, ``compress_sharded(data)``).
 
 Communication per file:
 
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import os
 
+import torch
 import torch.distributed as dist
 
 from .dist import compress_sharded, decompress_sharded
@@ -45,6 +48,12 @@ def init(**kwargs) -> None:
     world_size, rank, ...); the default backend is torch's own
     (``cpu:gloo,cuda:nccl``).
 
+    Once the group runs NCCL for CUDA tensors, the process is bound to its
+    card, ``cuda:<rank % cards>`` (``torch.cuda.set_device``), before any
+    collective: NCCL's communicator and ``barrier`` take the current card.
+    Nothing runs gloo in NCCL's place: where NCCL cannot start, its error
+    propagates.
+
     Failure semantics: with explicit arguments every error propagates. With
     none, torchrun's variables bring the group up (and their errors
     propagate); with none of them set the run is a single process: no
@@ -54,6 +63,9 @@ def init(**kwargs) -> None:
     if not kwargs and not any(v in os.environ for v in TORCHRUN_VARS):
         return
     dist.init_process_group(**kwargs)
+    config = dict(item.split(":") for item in dist.get_backend_config().split(","))
+    if config.get("cuda") == "nccl" and torch.cuda.is_available():
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
 
 
 def global_mesh(device=None) -> Mesh:

@@ -10,7 +10,10 @@ stage that queued it, also where one stage runs inside another (the
 sharded decode's ``allgather_exits`` inside ``device_fsm8_decode``; the
 outer stage's time includes the inner one's). That costs two
 ``torch.cuda.synchronize()`` per stage, a few dozen per call, and is off
-unless a caller asks for it.
+unless a caller asks for it. A recording belongs to the thread that asked
+for it, and a stage synchronizes only that thread's current card: the
+ranks of a local mesh each run in a thread of their own, on their own card
+(``parallel.dist`` records each rank's stages where its caller records).
 
 :func:`maybe_profile` is the ``torch.profiler`` twin of the JAX package's:
 with ``ENTREEPY_PROFILE=<dir>`` it traces the block (host, and the card's
@@ -22,24 +25,34 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 
 import torch
 
 from .utils.trace import phase as _env_phase
 
-_stages: dict[str, float] | None = None
+_local = threading.local()  # .stages: this thread's {stage: ms}, or absent
 
 
 def _sync() -> None:
+    """Wait for this thread's current card (set by ``torch.cuda.set_device``
+    in a rank's thread)."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+
+
+def current() -> dict[str, float] | None:
+    """This thread's record (the dict :func:`record_stages` yielded), or
+    None outside one."""
+    return getattr(_local, "stages", None)
 
 
 @contextlib.contextmanager
 def phase(name: str, nbytes: int | None = None):
     """One pipeline stage (see the module docstring)."""
-    if _stages is None:
+    stages = current()
+    if stages is None:
         with _env_phase(name, nbytes):
             yield
         return
@@ -47,20 +60,20 @@ def phase(name: str, nbytes: int | None = None):
     t0 = time.perf_counter()
     yield
     _sync()
-    _stages[name] = _stages.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+    stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
 
 
 @contextlib.contextmanager
 def record_stages():
-    """Yield a dict that collects ``{stage: ms}`` over the calls made inside
-    the block, each stage synchronized with the device at its end."""
-    global _stages
+    """Yield a dict that collects ``{stage: ms}`` over the calls this thread
+    makes inside the block, each stage synchronized with the device at its
+    end."""
     _sync()
-    _stages = {}
+    _local.stages = {}
     try:
-        yield _stages
+        yield _local.stages
     finally:
-        _stages = None
+        _local.stages = None
 
 
 @contextlib.contextmanager

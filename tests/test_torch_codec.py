@@ -277,10 +277,11 @@ def test_pick_backend_matches_jax(env, runtime_ok, fast, n, want, apis, monkeypa
 def test_auto_picks_sharded_in_a_group(world, want, apis, monkeypatch):
     """Where the JAX package picks "sharded" (more than one device), the
     port picks it in a process group of more than one rank: one rank drives
-    one card. Without a group, auto stays "device" at any card count."""
+    one card. A process that sees one card, without a group of more than
+    one rank, stays on "device" (more cards: test_torch_localmesh.py)."""
     _, tapi = apis
     monkeypatch.setattr(tapi, "_h2d_fast", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: world is not None)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: world)
     assert tapi._pick_backend(None, POD) == want

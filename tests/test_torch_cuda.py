@@ -461,11 +461,66 @@ def test_sharded_world1_routes(kind, expand, dev):
                "host": cuda_fsm8.emit_pass, "onepass": cuda_fsm8.fused_pass}
     packs, before = cuda_pack.pack_blocks.launches, kernels[expand].launches
     calls = decode8.decode_host.calls
-    assert et.compress(data, backend="sharded") == blob
+    assert et.compress(data, backend="sharded", device=dev) == blob  # one rank on any machine
     assert cuda_pack.pack_blocks.launches == packs + 1
-    assert et.decompress(blob, backend="sharded", expand=expand) == data
+    assert et.decompress(blob, backend="sharded", device=dev, expand=expand) == data
     assert kernels[expand].launches > before
     assert decode8.decode_host.calls == calls
+
+
+@pytest.mark.parametrize("expand", ["onepass", "split", "fused", "host"])
+def test_local_mesh_two_ranks_one_card(expand, dev):
+    """A local mesh of two ranks on cuda:0 (two threads on one card): the
+    host codec's .et and an exact round trip through every route, both
+    ranks' launches counted on cuda:0, no host fallback, no thread left."""
+    import threading
+
+    from entreepy_tpu_torch.parallel import compress_sharded, decompress_sharded, make_mesh
+    from entreepy_tpu_torch.parallel import dist as pdist
+
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    data = _corpus("text")
+    blob = et.compress(data, backend="host")
+    packs, calls = cuda_pack.pack_blocks.launches_on[0], decode8.decode_host.calls
+    assert compress_sharded(data, mesh) == blob
+    assert cuda_pack.pack_blocks.launches_on[0] == packs + 2
+    syncs = cuda_fsm8.sync_pass.launches_on[0]
+    assert decompress_sharded(blob, mesh, expand=expand) == data
+    assert cuda_fsm8.sync_pass.launches_on[0] >= syncs + 2
+    assert len({r["passes"] for r in pdist.last_decode_stats["ranks"]}) == 1
+    assert decode8.decode_host.calls == calls
+    assert not [t for t in threading.enumerate() if t.name.startswith("entreepy-rank-")]
+
+
+def test_local_mesh_truncated_card(dev):
+    """A truncated stream over two ranks on the card raises the host
+    codec's error in the caller, once."""
+    from entreepy_tpu_torch.format import parse_header
+    from entreepy_tpu_torch.parallel import decompress_sharded, make_mesh
+
+    good = et.compress(_corpus("text"), backend="host")
+    hdr = parse_header(good)
+    bad = good[: hdr.body_start + (len(good) - hdr.body_start) // 2]
+    with pytest.raises(ValueError, match="bitstream ended early"):
+        decompress_sharded(bad, make_mesh(devices=["cuda:0", "cuda:0"]))
+
+
+def test_local_mesh_every_card(dev):
+    """backend="sharded" in one process over every card: a rank per card,
+    each card launching kernels, the host codec's .et, exact round trips."""
+    from entreepy_tpu_torch.parallel import dist as pdist
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs 2 or more cards, this machine has {n}")
+    data = _corpus("text", 400_000)
+    blob = et.compress(data, backend="host")
+    before = dict(cuda_pack.pack_blocks.launches_on)
+    assert et.compress(data, backend="sharded") == blob
+    assert len(pdist.last_encode_stats["ranks"]) == n
+    assert all(cuda_pack.pack_blocks.launches_on[c] == before.get(c, 0) + 1 for c in range(n))
+    for expand in ("onepass", "host"):
+        assert et.decompress(blob, backend="sharded", expand=expand) == data
 
 
 @pytest.mark.parametrize("kind,lanes,steps,offset", [
@@ -689,7 +744,8 @@ def test_bench_headline_card(dev):
 
 
 def test_bench_weak_card(dev):
-    """Worlds 1 and 2 on cuda:0 (a gloo group), the .et and round trips exact."""
+    """Worlds 1 and 2 (NCCL, a card per rank, where the machine has the
+    cards; else gloo on cuda:0), the .et and round trips exact."""
     rows, _ = _bench("weak", "--worlds", "1,2", "--per-rank-mb", "0.5")
     assert [r["processes"] for r in rows] == [1, 2]
     for r in rows:

@@ -83,3 +83,60 @@ def test_large_kernel_windows_match_whole_shape(kind, n_bytes, monkeypatch):
     assert len(windows) == 5  # sync, emit, the sharded fused pass; pack, compaction
     assert all(f"lanes {lanes - 40}-{lanes - 1} compared" in w for w in windows[:3])
     assert all(f"blocks {blocks - 40}-{blocks - 1} compared" in w for w in windows[3:])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_mesh_kernel_checks_at_rank_slices(world, monkeypatch, capsys):
+    """``chip_smoke.shadow_checked`` over a local mesh of ``world`` CPU
+    ranks: every kernel the calls reach is held against its plain version
+    on the inputs each rank's call gave it, the untiled ones on the last
+    LARGE_WINDOW lanes or blocks; the calls stay exact, the wrappers are
+    restored after, and no launch is counted."""
+    import chip_smoke as cs
+    from entreepy_tpu_torch.ops import bitpack
+    from entreepy_tpu_torch.parallel import dist as pdist
+    from entreepy_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(cs, "LARGE_WINDOW", 40)
+    data = make_corpus("text", 200_000)
+    blob = compress(data, backend="host")
+    mesh = make_mesh(devices=["cpu"] * world)
+    merged = {}
+    calls = [("compress", lambda: pdist.compress_sharded(data, mesh), blob)] + [
+        (route, lambda r=route: pdist.decompress_sharded(blob, mesh, expand=r), data)
+        for route in decode8.EXPAND_MODES]
+    before = {fn: fn.launches for fn in KERNELS}
+    cs.shadow_checked("cpu mesh", calls, lambda fn, res: merged.__setitem__(fn, res), "cpu")
+    assert set(merged) == set(KERNELS)
+    assert all(res[0] == 0 for res in merged.values())
+    assert {fn: fn.launches for fn in KERNELS} == before
+    assert decode8.sync_pass is cuda_fsm8.sync_pass
+    assert bitpack.compact_rows is cuda_compact.compact_rows
+    assert pdist.pack_blocks is cuda_pack.pack_blocks
+    out = capsys.readouterr().out
+    lanes = -(-(-(-(len(blob) - parse_header(blob).body_start) // decode8.DEFAULT_CHUNK_BYTES))
+              // world)
+    assert "sync_pass against its plain version in" in out
+    assert "'last 40')" in out and f", {lanes}," in out
+
+
+def test_mesh_kernel_checks_catch_a_difference(monkeypatch):
+    """A kernel whose result differs from its plain version at a rank's
+    shapes fails the check, in the caller of the mesh."""
+    import chip_smoke as cs
+    from entreepy_tpu_torch.parallel import dist as pdist
+    from entreepy_tpu_torch.parallel import make_mesh
+
+    data = make_corpus("text", 60_000)
+    blob = compress(data, backend="host")
+    mesh = make_mesh(devices=["cpu"] * 2)
+    real = cuda_fsm8.sync_pass_plain
+
+    def off_by_one(xs, ns, entries):  # one exit off where the wrapper calls it, as a kernel
+        out = real(xs, ns, entries)
+        return out + 1 if sys._getframe(1).f_code.co_name == "sync_pass" else out
+
+    monkeypatch.setattr(cuda_fsm8, "sync_pass_plain", off_by_one)
+    with pytest.raises(AssertionError, match="differ"):
+        cs.shadow_checked("cpu mesh", [("onepass", lambda: pdist.decompress_sharded(blob, mesh),
+                                        data)], lambda fn, res: None, "cpu")
