@@ -1,0 +1,8 @@
+"""The share of the decode window in which a card ran no kernel, copy or
+set, %; on several cards the mean over them (profiler)."""
+
+from etbench.reduce import idle_pct
+
+
+def read(r):
+    return idle_pct(r)
