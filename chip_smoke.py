@@ -1315,11 +1315,12 @@ def stage_line(label: str, fn, iters: int, card: str) -> None:
         runs.append(stages)
 
     def stage(k: str) -> str:
-        ms = [r[k] for r in runs]
+        ms = [r.get(k, 0.0) for r in runs]  # fsm_build: only where its cache missed
         return f"{k} {statistics.median(ms):.3f} ({min(ms):.3f}-{max(ms):.3f})"
 
     print(f"[stages] {label}, ms (median of {iters}, range): "
-          + ", ".join(stage(k) for k in runs[0]) + f" | {card}")
+          + ", ".join(stage(k) for k in dict.fromkeys(k for r in runs for k in r))
+          + f" | {card}")
 
 
 def _self_device_us(event) -> float:

@@ -44,7 +44,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
-from . import runtime
+from . import runtime, trace
 from .format import compress_host, decompress_host, parse_header
 
 DEVICE_MIN_BYTES = 1 << 16
@@ -169,24 +169,25 @@ def compress(data: bytes, *, strict: bool = True, backend: str | None = None,
     card; passing one alone selects ``device``). progress: optional
     ``(pct, msg)`` callback.
     """
-    choice = _call_backend(backend, device, len(data))
-    if choice == "host":
-        return compress_host(data, strict=strict, progress=progress)
-    tick = progress or (lambda pct, msg: None)
-    if choice == "sharded":
-        from .parallel import compress_sharded, make_mesh
+    with trace.call("compress"):
+        choice = _call_backend(backend, device, len(data))
+        if choice == "host":
+            return compress_host(data, strict=strict, progress=progress)
+        tick = progress or (lambda pct, msg: None)
+        if choice == "sharded":
+            from .parallel import compress_sharded, make_mesh
 
-        mesh = make_mesh(device=device)
-        tick(20, "Counting characters...")
-        out = compress_sharded(data, mesh, strict=strict)
-    else:
-        from .ops.encode import compress_device
+            mesh = make_mesh(device=device)
+            tick(20, "Counting characters...")
+            out = compress_sharded(data, mesh, strict=strict)
+        else:
+            from .ops.encode import compress_device
 
-        dev = resolve_device(device)
-        tick(20, "Counting characters...")
-        out = compress_device(data, device=dev, strict=strict)
-    tick(90, "Writing compressed text...")
-    return out
+            dev = resolve_device(device)
+            tick(20, "Counting characters...")
+            out = compress_device(data, device=dev, strict=strict)
+        tick(90, "Writing compressed text...")
+        return out
 
 
 def decompress(et: bytes, *, backend: str | None = None, device=None,
@@ -202,23 +203,24 @@ def decompress(et: bytes, *, backend: str | None = None, device=None,
     """
     from .ops.decode8 import check_expand, decompress_device
 
-    check_expand(expand)
-    choice = _call_backend(backend, device, len(et))
-    if choice == "host":
-        return decompress_host(et, progress=progress)
-    tick = progress or (lambda pct, msg: None)
-    if choice == "sharded":
-        from .parallel import decompress_sharded, make_mesh
+    with trace.call("decompress"):
+        check_expand(expand)
+        choice = _call_backend(backend, device, len(et))
+        if choice == "host":
+            return decompress_host(et, progress=progress)
+        tick = progress or (lambda pct, msg: None)
+        if choice == "sharded":
+            from .parallel import decompress_sharded, make_mesh
 
-        mesh = make_mesh(device=device)
-        tick(20, "Decoding text...")
-        out = decompress_sharded(et, mesh, expand=expand)
-    else:
-        dev = resolve_device(device)
-        tick(20, "Decoding text...")
-        out = decompress_device(et, device=dev, expand=expand)
-    tick(90, "Writing decoded text...")
-    return out
+            mesh = make_mesh(device=device)
+            tick(20, "Decoding text...")
+            out = decompress_sharded(et, mesh, expand=expand)
+        else:
+            dev = resolve_device(device)
+            tick(20, "Decoding text...")
+            out = decompress_device(et, device=dev, expand=expand)
+        tick(90, "Writing decoded text...")
+        return out
 
 
 def compress_file(src, dst=None, **kwargs) -> str:

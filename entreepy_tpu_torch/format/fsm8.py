@@ -26,6 +26,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..trace import count, phase
 from .huffman import CodeTable
 
 BYTE_BITS = 8
@@ -97,12 +98,15 @@ _FSM_CACHE_MAX = 8
 
 def build_byte_fsm(table: CodeTable) -> ByteFsm:
     """Code table -> byte-granularity FSM, memoized on the table content
-    (the ~10 ms vectorized build would otherwise dominate small decodes)."""
+    (the ~10 ms vectorized build would otherwise dominate small decodes).
+    A miss is the stage ``fsm_build`` and one ``fsm_builds`` count."""
     key = table.lengths.tobytes() + table.codes.tobytes()
     hit = _FSM_CACHE.get(key)
     if hit is not None:
         return hit
-    fsm = _build_byte_fsm(table)
+    with phase("fsm_build"):
+        fsm = _build_byte_fsm(table)
+    count("fsm_builds", 1)
     if len(_FSM_CACHE) >= _FSM_CACHE_MAX:
         _FSM_CACHE.pop(next(iter(_FSM_CACHE)))
     _FSM_CACHE[key] = fsm

@@ -44,8 +44,15 @@ from ..format.etformat import parse_header
 from ..format.fsm8 import ByteFsm, build_byte_fsm
 from ..format.hostcodec import _check_end_byte, _check_stream_bits
 from ..format.huffman import CodeTable
-from ..tables import ExpandTables, decode_tables, expand_tables, next_state_tensor
-from ..trace import phase
+from ..tables import (
+    ExpandTables,
+    decode_tables,
+    expand_tables,
+    fetch,
+    next_state_tensor,
+    to_device,
+)
+from ..trace import count, phase
 from . import cuda_fsm8
 from .cuda_compact import compact_rows
 from .cuda_fsm8 import emit_pass, fused_pass, sync_pass
@@ -71,7 +78,7 @@ TILE_LANES = 65536
 
 def bytes_to_cols(padded: np.ndarray, lanes: int, k: int, device) -> torch.Tensor:
     """uint8[lanes*k] -> uint8[lanes, k] byte columns on ``device``."""
-    return torch.from_numpy(padded.reshape(lanes, k)).to(device)
+    return to_device(padded.reshape(lanes, k), device)
 
 
 def _one_rank(exits: torch.Tensor):
@@ -317,7 +324,10 @@ def fetch_symbols(plane):
         wait = plane if callable(plane) else _fetch_async(plane)
         plane, mini_tot, lane_tot, w_inv = wait()
     with phase("host_extract"):
-        return extract_plane_symbols(plane, mini_tot), lane_tot, w_inv
+        syms = extract_plane_symbols(plane, mini_tot)
+    count("plane_slots", plane.size)
+    count("symbols", syms.size)
+    return syms, lane_tot, w_inv
 
 
 def assemble_symbols(parts, lane_tots, w_invs, n_symbols, table, n_body) -> np.ndarray:
@@ -330,7 +340,8 @@ def assemble_symbols(parts, lane_tots, w_invs, n_symbols, table, n_body) -> np.n
         w_inv = np.concatenate([np.asarray(w, dtype=np.int64) for w in w_invs])
         w_inv[w_inv >= NO_INVALID] = -1
         validate_chunk_meta(lane_tot, w_inv, n_symbols)
-    out = np.concatenate(parts)[:n_symbols]
+    with phase("join_output"):
+        out = np.concatenate(parts)[:n_symbols]
     if out.size < n_symbols:
         raise ValueError(
             f"bitstream ended early: decoded {out.size} of {n_symbols} symbols"
@@ -437,6 +448,7 @@ def _fetch_async(tensors):
     by that stream, so their memory is not reused before the copy ends. CPU
     tensors are already on the host."""
     dev = tensors[0].device
+    count("d2h_bytes", sum(t.numel() * t.element_size() for t in tensors))
     host, done = list(tensors), None
     if dev.type == "cuda":
         side = _copy_stream(dev)
@@ -575,7 +587,7 @@ def decode_body_device(
     if unconverged:
         return decode_host(buf, table, n_symbols)
     with phase("device_state_fetch", buf.size):
-        st = states.t().contiguous().reshape(-1)[: buf.size].cpu().numpy()
+        (st,) = fetch(states.t().contiguous().reshape(-1)[: buf.size])
     with phase("host_expand", n_symbols):
         return expand_states(st, buf, fsm, n_symbols)
 
@@ -590,12 +602,14 @@ def decompress_device(et: bytes, *, device, chunk_bytes: int = DEFAULT_CHUNK_BYT
     """Complete .et file -> original bytes, decoded chunk-parallel on
     ``device`` through the ``expand`` route (one of EXPAND_MODES)."""
     check_expand(expand)
-    hdr = parse_header(et)
-    body = et[hdr.body_start:]
+    with phase("parse_header"):
+        hdr = parse_header(et)
+        body = et[hdr.body_start:]
     if expand == "host":
         out = decode_body_device(body, hdr.table, hdr.body_len, device=device,
                                  chunk_bytes=chunk_bytes)
     else:
         out = decode_body_device_full(body, hdr.table, hdr.body_len, device=device,
                                       chunk_bytes=chunk_bytes, expand=expand)
-    return out.tobytes()
+    with phase("join_output"):
+        return out.tobytes()

@@ -13,14 +13,12 @@ codec).
 
 from __future__ import annotations
 
-import warnings
-
 import numpy as np
 import torch
 
 from ..format.etformat import serialize_header
 from ..format.huffman import CodeTable, build_code_table
-from ..tables import code_tensors
+from ..tables import code_tensors, fetch, to_device
 from ..trace import phase
 from ..utils.stitch import stitch_flat_payload, words_to_bytes
 from .bitpack import (
@@ -38,18 +36,9 @@ DEFAULT_BLOCK_BYTES = 1024
 TILE_BLOCKS = (32 << 20) // DEFAULT_BLOCK_BYTES
 
 
-def upload(arr: np.ndarray, device) -> torch.Tensor:
-    """uint8 host array -> tensor on ``device``. A read-only source (bytes)
-    is fine: the tensor is only read."""
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", "The given NumPy array is not writable")
-        t = torch.from_numpy(arr)
-    return t.to(device)
-
-
 def histogram_on_device(data: torch.Tensor) -> np.ndarray:
     """int64[256] histogram of a uint8 device tensor, fetched to the host."""
-    return histogram_device(data).cpu().numpy()
+    return fetch(histogram_device(data))[0]
 
 
 def encode_blocks_device(data: torch.Tensor, table: CodeTable,
@@ -69,7 +58,7 @@ def encode_blocks_device(data: torch.Tensor, table: CodeTable,
         valid[-1] = n - (n_blocks - 1) * block_bytes
         codes, lengths = code_tensors(table, dev)
         words, emitted, acc, nbits = pack_blocks(
-            blocks.reshape(n_blocks, block_bytes), torch.from_numpy(valid).to(dev),
+            blocks.reshape(n_blocks, block_bytes), to_device(valid, dev),
             codes, lengths,
         )
     with phase("sizing_fetch"):
@@ -80,12 +69,10 @@ def encode_blocks_device(data: torch.Tensor, table: CodeTable,
             words, emitted, acc, nbits, cap_g
         )
     with phase("device_fetch"):
-        plane_np = plane.view(torch.int32).cpu().numpy().view(np.uint32)
-        counts_np = counts_gd.cpu().numpy()
-        bit_lens_np = bit_lens.cpu().numpy().astype(np.int64)
+        plane_np, counts_np, bit_lens_np = fetch(plane.view(torch.int32), counts_gd, bit_lens)
     with phase("host_assemble"):
-        flat, nwords = assemble_plane_payload(plane_np, counts_np)
-    return flat, nwords, bit_lens_np
+        flat, nwords = assemble_plane_payload(plane_np.view(np.uint32), counts_np)
+    return flat, nwords, bit_lens_np.astype(np.int64)
 
 
 def _uploads(arr: np.ndarray, tile_bytes: int, device):
@@ -94,7 +81,7 @@ def _uploads(arr: np.ndarray, tile_bytes: int, device):
     for off in range(0, max(arr.size, 1), tile_bytes):
         seg = arr[off:off + tile_bytes]
         with phase("input_upload", seg.size):
-            tile = upload(seg, device)
+            tile = to_device(seg, device)
         yield tile
 
 
@@ -112,8 +99,9 @@ def encode_tiles(tiles, table: CodeTable, block_bytes: int = DEFAULT_BLOCK_BYTES
     tile's flat payload trimmed to its ``nwords.sum()`` words, so the
     stitch's cumsum(nwords) offsets stay aligned across tiles."""
     flats, nwords, bit_lens = zip(*(encode_blocks_device(t, table, block_bytes) for t in tiles))
-    return (np.concatenate([f[: int(nw.sum())] for f, nw in zip(flats, nwords)]),
-            np.concatenate(nwords), np.concatenate(bit_lens))
+    with phase("join_tiles"):
+        return (np.concatenate([f[: int(nw.sum())] for f, nw in zip(flats, nwords)]),
+                np.concatenate(nwords), np.concatenate(bit_lens))
 
 
 def compress_device(data: bytes, *, device, strict: bool = True,

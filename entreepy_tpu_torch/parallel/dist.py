@@ -72,8 +72,15 @@ from ..ops.bitpack import (
     plane_cap_g,
 )
 from ..ops.cuda_pack import pack_blocks
-from ..ops.encode import DEFAULT_BLOCK_BYTES, upload
-from ..tables import code_tensors, decode_tables, expand_tables, next_state_tensor
+from ..ops.encode import DEFAULT_BLOCK_BYTES
+from ..tables import (
+    code_tensors,
+    decode_tables,
+    expand_tables,
+    fetch,
+    next_state_tensor,
+    to_device,
+)
 from ..trace import phase
 from ..utils.stitch import split_blocks, stitch_flat_payload, words_to_bytes
 from .mesh import Mesh, make_mesh
@@ -137,9 +144,9 @@ def _spmd(mesh: Mesh, rank_fn, *args, **kwargs):
     rank's own data, for the caller to join (:func:`_join`); the stats are
     rank 0's with every rank's under ``"ranks"`` (each with its
     ``"stages"`` where the caller records them, the caller's record getting
-    each stage's slowest rank). A rank's error aborts the barrier and is
-    raised here, the lowest rank's first; no rank thread outlives the
-    call."""
+    each stage's slowest rank and each count summed over the ranks). A
+    rank's error aborts the barrier and is raised here, the lowest rank's
+    first; no rank thread outlives the call."""
     if not mesh.local:
         part, stats = rank_fn(mesh, *args, **kwargs)
         return [part], stats
@@ -185,6 +192,9 @@ def _spmd(mesh: Mesh, rank_fn, *args, **kwargs):
         for name in dict.fromkeys(k for st in ranks for k in st["stages"]):
             caller[name] = caller.get(name, 0.0) + max(st["stages"].get(name, 0.0)
                                                        for st in ranks)
+        for st in ranks:
+            for name, n in st["stages"].counts.items():
+                trace.count(name, n)
     return [res[0] for res in results], {**ranks[0], "ranks": ranks}
 
 
@@ -300,17 +310,17 @@ def _compress_rank(mesh: Mesh, blocks: np.ndarray, valid: np.ndarray, *, strict:
     block_bytes = blocks.shape[1]
     lanes = blocks.shape[0] // world
     with phase("input_upload", lanes * block_bytes):
-        mine = upload(np.ascontiguousarray(blocks[mesh.rank::world]), dev)
+        mine = to_device(np.ascontiguousarray(blocks[mesh.rank::world]), dev)
         my_valid = valid[mesh.rank::world]
     with phase("device_histogram", mine.numel()):
         hist = histogram_device(mine.reshape(-1))
         hist[0] -= mine.numel() - int(my_valid.sum())  # the blocks' zero padding
-        counts = _all_reduce(hist, mesh).cpu().numpy()
+        (counts,) = fetch(_all_reduce(hist, mesh))
     with phase("code_table"):
         table = build_code_table(counts, strict=strict)
     with phase("device_pack", mine.numel()):
         codes, lengths = code_tensors(table, dev)
-        words, emitted, acc, nbits = pack_blocks(mine, torch.from_numpy(my_valid).to(dev),
+        words, emitted, acc, nbits = pack_blocks(mine, to_device(my_valid, dev),
                                                  codes, lengths)
     with phase("sizing_fetch"):
         cap_g = plane_cap_g(int(grouped_counts_plane(emitted).max()), block_bytes)
@@ -319,6 +329,7 @@ def _compress_rank(mesh: Mesh, blocks: np.ndarray, valid: np.ndarray, *, strict:
     with phase("gather_payload"):
         part = ([table], _to_host(flat.view(torch.int32), mesh, ragged=True),
                 _to_host(nwords, mesh), _to_host(bit_lens, mesh))
+        trace.count("d2h_bytes", sum(a.nbytes for arrays in part[1:] for a in arrays))
     return part, dict(payload_bytes=flat.numel() * 4,
                       dense_bytes=world * (words.numel() * 4 + emitted.numel()))
 
@@ -462,7 +473,7 @@ def _decompress_rank(mesh: Mesh, buf: np.ndarray, table, n: int, fsm: ByteFsm,
         return None, stats
     if expand == "host":
         with phase("device_state_fetch", seg.size):
-            st = states.t().contiguous().reshape(-1)[: seg.size].cpu().numpy()
+            (st,) = fetch(states.t().contiguous().reshape(-1)[: seg.size])
         with phase("host_expand", n):
             lane_tot, w_inv, syms = _expand_chunks(st, seg, fsm, chunk_bytes, lanes)
         stats.update(fetched_states_bytes=st.nbytes,

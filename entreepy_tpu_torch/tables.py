@@ -2,7 +2,10 @@
 
 The port builds every table in numpy (``format``, its copy of the JAX
 package's ``entreepy_tpu.format``); this module only carries them onto a
-device, as plain integers. Two JAX forms do
+device, as plain integers, through :func:`to_device`, which every upload of
+the pipelines goes through, as every fetch but the decode plane's
+asynchronous one goes through :func:`fetch`: both count the bytes they move
+(``trace.count``). Two JAX forms do
 not come across: the bf16 cast (an MXU one-hot contraction is exact only for
 values <= 255 in bf16) and the int8 value-128 form (the v5e int8 MXU rate).
 Likewise the 5-column limb table ``code_table_cols`` existed only to keep bf16
@@ -11,6 +14,7 @@ matmuls exact; the pack kernel takes ``codes`` and ``lengths`` directly.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -26,6 +30,7 @@ from .format.fsm8 import (
 )
 from .format.huffman import CodeTable
 from .ops.cuda_fsm8 import expand_vector_table
+from .trace import count
 
 
 @dataclass(frozen=True)
@@ -44,16 +49,36 @@ class DecodeTables:
     s: int
 
 
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """Host array -> tensor on ``device``, its bytes counted as
+    ``h2d_bytes``: every upload of the pipelines, tables, bodies and
+    documents alike. A read-only source (bytes) is fine: the tensor is only
+    read."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+        t = torch.from_numpy(arr)
+    count("h2d_bytes", arr.nbytes)
+    return t.to(device)
+
+
+def fetch(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """Device tensors -> numpy arrays on the host, their bytes counted as
+    ``d2h_bytes``."""
+    out = [t.cpu().numpy() for t in tensors]
+    count("d2h_bytes", sum(a.nbytes for a in out))
+    return out
+
+
 def next_state_tensor(fsm: ByteFsm, device) -> torch.Tensor:
     """``fsm.next_state`` uint8[S, 256] on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(fsm.next_state)).to(device)
+    return to_device(np.ascontiguousarray(fsm.next_state), device)
 
 
 def decode_tables(fsm: ByteFsm, device) -> DecodeTables:
     t, m, mt, s = fused_decode_tensors(fsm)
     return DecodeTables(
         next_state=next_state_tensor(fsm, device),
-        fused=torch.from_numpy(t.astype(np.uint8)).to(device),
+        fused=to_device(t.astype(np.uint8), device),
         m=m,
         mt=mt,
         s=s,
@@ -91,7 +116,7 @@ def expand_tables(fsm: ByteFsm, device, split: bool) -> ExpandTables:
         t, m, mt = split_expand_tensors(fsm)
     else:
         (t, m), mt = expand_tensors(fsm), None
-    table = torch.from_numpy(t.astype(np.uint8)).to(device)
+    table = to_device(t.astype(np.uint8), device)
     vec = None
     if not split and table.device.type == "cuda":
         vec = expand_vector_table(table, m)
@@ -107,8 +132,8 @@ def expand_tables(fsm: ByteFsm, device, split: bool) -> ExpandTables:
 
 def code_tensors(table: CodeTable, device) -> tuple[torch.Tensor, torch.Tensor]:
     """(codes uint32[256] right-aligned, lengths uint8[256]) on ``device``."""
-    codes = torch.from_numpy(table.codes.astype(np.uint32)).to(device)
-    lengths = torch.from_numpy(table.lengths.astype(np.uint8)).to(device)
+    codes = to_device(table.codes.astype(np.uint32), device)
+    lengths = to_device(table.lengths.astype(np.uint8), device)
     return codes, lengths
 
 

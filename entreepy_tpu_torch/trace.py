@@ -13,7 +13,36 @@ outer stage's time includes the inner one's). That costs two
 unless a caller asks for it. A recording belongs to the thread that asked
 for it, and a stage synchronizes only that thread's current card: the
 ranks of a local mesh each run in a thread of their own, on their own card
-(``parallel.dist`` records each rank's stages where its caller records).
+(``parallel.dist`` records each rank's stages where its caller records,
+and hands its caller each stage's slowest rank and each count summed over
+the ranks).
+
+While ``torch.profiler`` records, each stage is also a range
+``entreepy.<stage>`` on the profiler's clock, and :func:`call` a range
+``entreepy.compress`` / ``entreepy.decompress`` around a whole API call, so a
+trace names the stage the host was in at any instant; nested stages nest
+their ranges, in whatever thread runs them (a local mesh's rank threads show
+in a profiler of every thread, ``_ExperimentalConfig(profile_all_threads=
+True)``). Inside a record a stage's range
+holds its two synchronizes. With the profiler off, a stage or a call costs
+one flag check more than it would without ranges.
+
+A record also counts (:func:`count`, ``.counts`` of the dict
+:func:`record_stages` yields), at the boundary where the work happens:
+
+* ``h2d_bytes``: host arrays moved to the device (bodies, documents, tables);
+* ``d2h_bytes``: device tensors moved back (planes, states, payloads,
+  histograms). Scalar readbacks of a few bytes (``int()``, ``bool()``: a
+  sizing maximum, the fixed point's test) are left out, and so are a
+  process group's staging copies inside its collectives;
+* ``plane_slots`` / ``symbols``: slots of the fetched symbol plane that the
+  host's extraction scans, and the symbols it finds there;
+* ``fsm_builds``: byte automata built, each a miss of ``build_byte_fsm``'s
+  cache (the stage ``fsm_build``).
+
+The sites count whatever the device, so a CPU run counts the bytes the
+pipeline hands across as the card's would; outside a record a count does
+nothing.
 
 :func:`maybe_profile` is the ``torch.profiler`` twin of the JAX package's:
 with ``ENTREEPY_PROFILE=<dir>`` it traces the block (host, and the card's
@@ -29,10 +58,20 @@ import threading
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from .utils.trace import phase as _env_phase
 
-_local = threading.local()  # .stages: this thread's {stage: ms}, or absent
+_local = threading.local()  # .stages: this thread's Record, or absent
+
+
+class Record(dict):
+    """What :func:`record_stages` yields: ``{stage: ms}`` items, and
+    ``counts``, ``{name: number}`` of :func:`count`."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts: dict[str, int] = {}
 
 
 def _sync() -> None:
@@ -42,16 +81,15 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
-def current() -> dict[str, float] | None:
+def current() -> Record | None:
     """This thread's record (the dict :func:`record_stages` yielded), or
     None outside one."""
     return getattr(_local, "stages", None)
 
 
-@contextlib.contextmanager
-def phase(name: str, nbytes: int | None = None):
-    """One pipeline stage (see the module docstring)."""
-    stages = current()
+def _stage(name: str, nbytes: int | None, stages: Record | None):
+    """The body of :func:`phase`: outside a record the stderr line, else the
+    stage timed between two synchronizes into ``stages``."""
     if stages is None:
         with _env_phase(name, nbytes):
             yield
@@ -64,12 +102,41 @@ def phase(name: str, nbytes: int | None = None):
 
 
 @contextlib.contextmanager
+def phase(name: str, nbytes: int | None = None):
+    """One pipeline stage (see the module docstring)."""
+    if _autograd_profiler._is_profiler_enabled:
+        with torch.profiler.record_function(f"entreepy.{name}"):
+            yield from _stage(name, nbytes, current())
+    else:
+        yield from _stage(name, nbytes, current())
+
+
+@contextlib.contextmanager
+def call(name: str):
+    """A whole API call: the range ``entreepy.<name>`` while the profiler
+    records, else nothing. It adds no stage to a record."""
+    if _autograd_profiler._is_profiler_enabled:
+        with torch.profiler.record_function(f"entreepy.{name}"):
+            yield
+    else:
+        yield
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the count ``name`` of this thread's record; nothing
+    outside one."""
+    rec = current()
+    if rec is not None:
+        rec.counts[name] = rec.counts.get(name, 0) + n
+
+
+@contextlib.contextmanager
 def record_stages():
-    """Yield a dict that collects ``{stage: ms}`` over the calls this thread
-    makes inside the block, each stage synchronized with the device at its
-    end."""
+    """Yield a :class:`Record` that collects ``{stage: ms}`` and the counts
+    over the calls this thread makes inside the block, each stage
+    synchronized with the device at its end."""
     _sync()
-    _local.stages = {}
+    _local.stages = Record()
     try:
         yield _local.stages
     finally:

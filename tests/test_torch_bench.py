@@ -209,10 +209,12 @@ def test_scale_rows_tie_to_jax(kind, scale_rows):
 
 
 def test_scale_stages(scale_rows):
-    """The device row's stages are trace.record_stages' of the same calls."""
+    """The device row's stages are trace.record_stages' of the same calls,
+    made, as the row's are, after a call that built the byte automaton."""
     data = corpus.make_corpus("text", int(SCALE_MB * 1e6))
     with trace.record_stages() as enc:
         blob = et.compress(data, backend="device", device="cpu")
+    et.decompress(blob, backend="device", device="cpu")
     with trace.record_stages() as dec:
         et.decompress(blob, backend="device", device="cpu")
     row = next(r for r in scale_rows if (r["corpus"], r["backend"]) == ("text", "device"))

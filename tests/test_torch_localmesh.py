@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from entreepy_tpu_torch import _build, api, cli, trace  # noqa: E402
 from entreepy_tpu_torch.format import compress_host as port_compress_host  # noqa: E402
+from entreepy_tpu_torch.format import fsm8 as port_fsm8  # noqa: E402
 from entreepy_tpu_torch.format import parse_header  # noqa: E402
 from entreepy_tpu_torch.ops import decode8  # noqa: E402
 from entreepy_tpu_torch.parallel import compress_sharded, decompress_sharded, make_mesh  # noqa: E402
@@ -313,18 +314,20 @@ def test_stage_records_are_per_thread():
 
 def test_local_mesh_stages(host_ets):
     """Under the caller's record, each rank records its own stages, and the
-    caller's record gets each stage's slowest rank, then the host tail's
-    stages, which only the caller runs."""
+    caller's record gets the byte automaton's build (the caller's, on a miss
+    of its cache), each stage's slowest rank, then the host tail's stages,
+    which only the caller runs."""
+    port_fsm8._FSM_CACHE.clear()
     with trace.record_stages() as stages:
         assert decompress_sharded(host_ets["text"], _local(2)) == _corpus("text")
     ranks = pdist.last_decode_stats["ranks"]
     tail = ["host_validate", "host_join", "host_check_bits"]
-    assert [list(r["stages"]) for r in ranks] == [list(stages)[: -len(tail)]] * 2
+    assert list(stages)[0] == "fsm_build"
+    assert [list(r["stages"]) for r in ranks] == [list(stages)[1: -len(tail)]] * 2
     assert list(stages)[-len(tail):] == tail
     assert "allgather_exits" in stages and "gather_symbols" in stages
-    for name, ms in stages.items():
-        if name not in tail:
-            assert ms == max(r["stages"][name] for r in ranks)
+    for name in list(stages)[1: -len(tail)]:
+        assert stages[name] == max(r["stages"][name] for r in ranks)
 
 
 @pytest.mark.parametrize("op", ["compress", "decompress"])

@@ -34,6 +34,7 @@ from entreepy_tpu.ops.pallas_fsm8 import (  # noqa: E402
 
 import entreepy_tpu_torch  # noqa: E402
 from entreepy_tpu_torch import trace  # noqa: E402
+from entreepy_tpu_torch.format import fsm8 as port_fsm8  # noqa: E402
 from entreepy_tpu_torch.ops import cuda_fsm8  # noqa: E402
 from entreepy_tpu_torch.ops import decode8 as td  # noqa: E402
 from entreepy_tpu_torch.tables import expand_tables  # noqa: E402
@@ -354,17 +355,19 @@ def test_unconverged_state_pass_uses_host_decoder(mode, monkeypatch, midsummer):
     assert td.decode_host.calls == before + 1
 
 
-DEVICE_STAGES = ["decode_tables", "body_upload", "device_fsm8_decode", "device_expand",
-                 "device_sym_fetch", "host_extract", "host_validate", "host_check_bits"]
+DEVICE_STAGES = ["parse_header", "fsm_build", "decode_tables", "body_upload",
+                 "device_fsm8_decode", "device_expand", "device_sym_fetch", "host_extract",
+                 "host_validate", "join_output", "host_check_bits"]
 
 
 @pytest.mark.parametrize("mode,stages", [
     ("split", DEVICE_STAGES), ("fused", DEVICE_STAGES),
-    ("host", ["decode_tables", "body_upload", "device_fsm8_decode", "device_state_fetch",
-              "host_expand"]),
+    ("host", ["parse_header", "fsm_build", "decode_tables", "body_upload",
+              "device_fsm8_decode", "device_state_fetch", "host_expand", "join_output"]),
 ])
 def test_record_stages_per_route(mode, stages, midsummer):
     et = compress_host(midsummer)
+    port_fsm8._FSM_CACHE.clear()  # so the call builds its byte automaton
     with trace.record_stages() as got:
         assert entreepy_tpu_torch.decompress(et, backend="device", device="cpu",
                                              expand=mode) == midsummer
