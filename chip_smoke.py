@@ -11,14 +11,17 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 1. device  — the card's name and power limit (nvidia-smi), CUDA version,
              capability (must be 9.0), nvcc;
 2. build   — compile the kernels of entreepy_tpu_torch/csrc with nvcc;
-3. kernels — each of the seven kernels against its plain PyTorch version at
+3. kernels — each of the nine kernels against its plain PyTorch version at
              the shapes of the 5.2 MB text corpus (and of the skewed and
              run-heavy corpora for the unpacked fused pass, the sync pass's
              and the emit pass's 256-state tables and the expansions' wider
              tables; the
              compaction also on each expansion's rows, as the two-pass
              routes give them), bit-identical on every live value;
-             the sync and fused passes also at a full 65,536-lane tile of the
+             the sync and fused passes and the symbols kernel's two launches
+             (symbol_counts, write_symbols: the packed form at the text's
+             tiles, the plane form at the skewed and run-heavy bodies') also
+             at a full 65,536-lane tile of the
              100 MB text body, the pack at a full 32 MiB encode tile of the
              100 MB text; a kernel's time is a run of back-to-back launches between
              one CUDA-event pair, divided by the count; a plain version's is
@@ -27,9 +30,9 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              written once) over the card's 3.35 TB/s, and its library time
              that of one PyTorch call computing the same function, where one
              exists (the full-table expansion: one advanced-indexing call);
-   guard   — every one of the kernels' 34 template instantiations at small
+   guard   — every one of the kernels' 37 template instantiations at small
              odd shapes (tools/sanitize_kernels.py's calls; lanes 1, 7, 33,
-             300): torch.profiler must see all 34 launch; then each call
+             300): torch.profiler must see all 37 launch; then each call
              twice, every input and every tensor the wrappers allocate
              inside guard bands of a poison byte (0xA5, then 0x5A): no guard
              band may change (a write out of bounds), no input may change,
@@ -108,7 +111,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              text, ``weak`` over worlds 1 and 2): exit 0, every row's .et equal
              to the host backend's and its round trip exact, the headline's
              ``cuda_*`` probe figures positive with each bound share at most
-             100 %, all seven kernels launched by the headline's device rows
+             100 %, all nine kernels launched by the headline's device rows
              and by the 5 MB sweep's, no module of JAX or of entreepy_tpu in
              the bench's process; every number beside the card. Each path runs
              with the launch counts set to 0 and must launch each of its
@@ -170,7 +173,9 @@ import entreepy_tpu_torch as et  # noqa: E402
 from entreepy_tpu_torch.bench import bound_ms, kernel_ms, make_corpus  # noqa: E402
 from entreepy_tpu_torch.bench.timing import rss_peak  # noqa: E402
 from entreepy_tpu_torch import _build, api, cli, runtime, trace  # noqa: E402
-from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, decode8  # noqa: E402
+from entreepy_tpu_torch.ops import (  # noqa: E402
+    cuda_compact, cuda_fsm8, cuda_pack, cuda_symbols, decode8,
+)
 from entreepy_tpu_torch.ops.bitpack import (  # noqa: E402
     grouped_counts_plane, plane_cap_g, plane_sub_for,
 )
@@ -200,28 +205,34 @@ KERNELS = {  # wrapper -> (name, source, TPU kernel it replaces)
                             "entreepy_tpu/ops/pallas_pack.py:117"),
     cuda_compact.compact_rows: ("compact_rows", "entreepy_tpu_torch/csrc/compact.cu",
                                 "entreepy_tpu/ops/pallas_compact.py:121"),
+    # the symbols kernel's two launches; the JAX package selects the symbols on the host
+    cuda_symbols.symbol_counts: ("symbol_counts", "entreepy_tpu_torch/csrc/symbols.cu",
+                                 "none (host selection)"),
+    cuda_symbols.write_symbols: ("write_symbols", "entreepy_tpu_torch/csrc/symbols.cu",
+                                 "none (host selection)"),
 }
+SYMBOLS = (cuda_symbols.symbol_counts, cuda_symbols.write_symbols)
 # Kernels each main path must launch: the device backend's round trip (encode
 # and the one-pass decode) and each two-pass decode route.
 PATH_KERNELS = {
     "device": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks,
-               cuda_compact.compact_rows),
+               cuda_compact.compact_rows, *SYMBOLS),
     "split": (cuda_fsm8.sync_pass, cuda_fsm8.emit_pass, cuda_fsm8.expand_pass_split,
-              cuda_compact.compact_rows),
+              cuda_compact.compact_rows, cuda_symbols.write_symbols),
     "fused": (cuda_fsm8.sync_pass, cuda_fsm8.emit_pass, cuda_fsm8.expand_pass,
-              cuda_compact.compact_rows),
+              cuda_compact.compact_rows, cuda_symbols.write_symbols),
     "host": (cuda_fsm8.sync_pass, cuda_fsm8.emit_pass),
     # the tiled decode at narrow tiles: packed text and unpacked skewed rows
-    "tiles": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_compact.compact_rows),
+    "tiles": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_compact.compact_rows, *SYMBOLS),
     # auto routing at 5.2 MB (host: no launch) and 100 MB (the device)
-    "auto": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks),
+    "auto": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks, *SYMBOLS),
     "cli": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks,
-            cuda_compact.compact_rows),
-    # the sharded backend at world 1: every route, so all seven kernels
+            cuda_compact.compact_rows, *SYMBOLS),
+    # the sharded backend at world 1: every route, so all nine kernels
     "sharded": tuple(KERNELS),
     # the JAX package's largest configurations (tools/large_check.py)
     "large": lg.PATH_KERNELS,
-    # local meshes: 5.2 MB text through every route, so all seven kernels
+    # local meshes: 5.2 MB text through every route, so all nine kernels
     "multicard": tuple(KERNELS),
 }
 # World 1 of the sharded phase: each corpus through these routes.
@@ -442,6 +453,57 @@ def fused_err(vk, xk, vp, xp, m: int, packed: bool) -> int:
                max_err(slots_k, slots_p, j < (row0p & 15)[:, None, :]))
 
 
+def onepass_items(xs, tables, n_valid, lanes):
+    """What the one-pass route hands the symbols kernel for a body at its
+    fixed point: (items, m, mini_tot, cap) of :func:`symbols_check`, the
+    fused pass's packed words for m <= 3, else the compaction kernel's
+    subgroup plane of its masked rows."""
+    m = tables.m
+    vals, _, unconverged = decode8.fsm8_decode_fused(
+        xs.t().contiguous(), tables.next_state, tables.fused, lanes, m, tables.mt, tables.s,
+        packed=m <= 3, n_valid=n_valid)
+    require(not unconverged, "self-sync did not converge")
+    if m <= 3:
+        return vals, m, None, 0
+    counts, inv, syms = decode8._expand_mask(vals[:, 0], vals[:, 1:].to(torch.uint8), n_valid)
+    cap = decode8.sym_cap(counts, m)
+    plane, mini_tot, _, _ = decode8.compact_symbols_device(counts, inv, syms, m, cap)
+    return plane, 1, mini_tot, cap
+
+
+def symbols_check(items, m, mini_tot=None, cap=0):
+    """The symbols kernel vs plain on a tile's items: the count launch's
+    lane_tot and w_inv (packed form) and the write launch's symbols exact.
+    Returns (the count launch's (err, ms, plain_ms, bound_ms, library_ms),
+    None on the plane form; the write launch's; (ms, bound_ms) of the
+    launches back to back, the bound the items read once and the symbols
+    and lane metadata written once)."""
+    count = None
+    if mini_tot is None:
+        tot, inv = cuda_symbols.symbol_counts(items, m)
+        err = max(max_err(t, p) for t, p in zip((tot, inv),
+                                                cuda_symbols.symbol_counts_plain(items, m)))
+        count = (err, kernel_ms(lambda: cuda_symbols.symbol_counts(items, m)),
+                 cuda_ms(lambda: cuda_symbols.symbol_counts_plain(items, m), 3),
+                 bound_ms(items, tot, inv), None)
+    else:
+        tot = mini_tot.clamp(max=cap).sum(0, dtype=torch.int32)
+    ends = tot.cumsum(0, dtype=torch.int64)
+    args = (items, ends, int(ends[-1]), m, mini_tot, cap)
+    out = cuda_symbols.write_symbols(*args)
+    ins = (items,) if mini_tot is None else (items, mini_tot)
+    write = (max_err(out, cuda_symbols.write_symbols_plain(*args)),
+             kernel_ms(lambda: cuda_symbols.write_symbols(*args)),
+             cuda_ms(lambda: cuda_symbols.write_symbols_plain(*args), 3),
+             bound_ms(*ins, ends, out), None)
+    if mini_tot is None:
+        pair = kernel_ms(lambda: (cuda_symbols.symbol_counts(items, m),
+                                  cuda_symbols.write_symbols(*args)))
+    else:
+        pair = write[1]
+    return count, write, (pair, bound_ms(*ins, out, tot, tot))
+
+
 def timed(fn):
     """(fn(), its device time in ms: one call between a CUDA-event pair)."""
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -591,6 +653,21 @@ def _compact_err(a, out, win):
     return max(max_err(out[0][:, win], cp[0]), max_err(out[1][:, win], cp[1]))
 
 
+def _counts_err(a, out, win):
+    tp, ip = cuda_symbols.symbol_counts_plain(a["words"][:, win], a["m"])
+    return max(max_err(out[0][win], tp), max_err(out[1][win], ip))
+
+
+def _write_err(a, out, win):
+    """The window's lanes' symbols, from the end of the lane before it."""
+    ends, mini = a["ends"], a["mini_tot"]
+    lo = int(ends[win.start - 1]) if win.start else 0
+    plain = cuda_symbols.write_symbols_plain(
+        a["items"][:, win], ends[win] - lo, a["total"] - lo, a["m"],
+        None if mini is None else mini[:, win], a["cap"])
+    return max_err(out[lo:], plain)
+
+
 # kernel -> (its comparison with the plain version on a window of its lanes
 # or blocks, the argument whose lanes (dim 1) or blocks (dim 0) are windowed)
 SHADOW = {
@@ -601,6 +678,8 @@ SHADOW = {
     cuda_fsm8.expand_pass: (_expand_err(cuda_fsm8.expand_pass_plain), ("xs", 1)),
     cuda_pack.pack_blocks: (_pack_err, ("blocks", 0)),
     cuda_compact.compact_rows: (_compact_err, ("wk", 1)),
+    cuda_symbols.symbol_counts: (_counts_err, ("words", 1)),
+    cuda_symbols.write_symbols: (_write_err, ("items", 1)),
 }
 
 
@@ -1014,12 +1093,14 @@ def card_kernel_checks(text: bytes, blob: bytes, cards, show, merge) -> None:
             for fn, split in ((cuda_fsm8.expand_pass_split, True), (cuda_fsm8.expand_pass, False)):
                 res, cres, _, _ = expand_check(blob, split)
                 checks += [(fn, res), (cuda_compact.compact_rows, cres)]
+            count, write, _ = symbols_check(*onepass_items(xs, tables, n_valid, lanes))
+            checks += list(zip(SYMBOLS, (count, write)))
             del xs, tables, pk
             torch.cuda.empty_cache()
         for fn, res in checks:
             merge(fn, res)
             show(f"cuda:{c} {KERNELS[fn][0]}, text 5.2 MB shapes", res, "multicard")
-        print(f"[multicard] cuda:{c}: all seven kernels equal their plain versions, "
+        print(f"[multicard] cuda:{c}: all nine kernels equal their plain versions, "
               f"{time.perf_counter() - t0:.1f} s | {card_of(c)}", flush=True)
 
 
@@ -1033,7 +1114,7 @@ def card_of(c: int) -> str:
 def multicard_phase(card: str, data_of: dict, blobs: dict, show, merge,
                     all_card_checks: bool = False) -> dict:
     """[multicard] (see the module docstring): run through ``run_path`` with
-    all seven kernels; returns the path's launch counts. Then each local
+    all nine kernels; returns the path's launch counts. Then each local
     mesh's calls once more with every kernel held against its plain version
     at the rank slices' shapes (at [large]'s configurations inside the
     path's run, outside its counts). ``all_card_checks``: also hold the
@@ -1220,7 +1301,7 @@ def bench_headline(line: dict, card: str) -> None:
 
 def bench_scale(rows: list[dict], label: str, card: str) -> None:
     """Every row's .et equal to the host backend's and round trip exact;
-    the device rows of all routes launch all seven kernels."""
+    the device rows of all routes launch all nine kernels."""
     bad = [(r["corpus"], r["backend"], r["route"]) for r in rows
            if not (r["et_equals_host"] and r["round_trip"])]
     require(not bad, f"[bench] {label}: rows not exact: {bad}")
@@ -1450,6 +1531,20 @@ def main(argv: list[str]) -> int:
     results[cuda_fsm8.fused_pass] = fused_check(xs, tables, n_valid, lanes, True)
     results[cuda_fsm8.emit_pass] = emit_check(xs, tables.next_state)
 
+    def symbols_rows(label, res):
+        """Each launch's check merged and shown, and the launches back to back
+        beside the bytes the tile moves at least."""
+        count, write, (pair_ms, pair_bound) = res
+        for fn, r in zip(SYMBOLS, (count, write)):
+            if r is not None:
+                merge(fn, r)
+                show(f"{KERNELS[fn][0]}, {label}", r)
+        print(f"[kernels] symbols kernel, {label}: the launches back to back {pair_ms:.4f} ms, "
+              f"bound {pair_bound:.4f} ms ({pair_bound / pair_ms:.1%} of it) | {card}")
+
+    symbols_rows(f"text body ({lanes} lanes, packed, m={tables.m})",
+                 symbols_check(*onepass_items(xs, tables, n_valid, lanes)))
+
     results[cuda_pack.pack_blocks], pk = pack_check(text, et.compress(text, backend="host"))
     n_blocks = pk[1].shape[0]
 
@@ -1485,6 +1580,8 @@ def main(argv: list[str]) -> int:
     sk_xs, sk_tables, sk_valid, sk_lanes = body_cols(corpus("skewed", 5 * MB))
     res = fused_check(sk_xs, sk_tables, sk_valid, sk_lanes, False)
     merge(cuda_fsm8.fused_pass, res)
+    symbols_rows(f"skewed body ({sk_lanes} lanes, plane form, m={sk_tables.m})",
+                 symbols_check(*onepass_items(sk_xs, sk_tables, sk_valid, sk_lanes)))
     show(f"fused_pass unpacked, skewed body {sk_valid} B: {sk_lanes} lanes, m={sk_tables.m} "
          f"table {tuple(sk_tables.fused.shape)} ({sk_tables.fused.numel()} B shared)", res)
     res = sync_check(sk_xs, sk_tables.next_state)
@@ -1494,6 +1591,8 @@ def main(argv: list[str]) -> int:
     rh_xs, rh_tables, rh_valid, rh_lanes = body_cols(corpus("runheavy", 5 * MB))
     res = fused_check(rh_xs, rh_tables, rh_valid, rh_lanes, False)
     merge(cuda_fsm8.fused_pass, res)
+    symbols_rows(f"run-heavy body ({rh_lanes} lanes, plane form, m={rh_tables.m})",
+                 symbols_check(*onepass_items(rh_xs, rh_tables, rh_valid, rh_lanes)))
     show(f"fused_pass unpacked, run-heavy body {rh_valid} B: {rh_lanes} lanes, "
          f"m={rh_tables.m} table {tuple(rh_tables.fused.shape)}", res)
     # a full tile of the streaming encode: the 100 MB text's first 32 MiB
@@ -1512,6 +1611,8 @@ def main(argv: list[str]) -> int:
     res = fused_check(tile_xs, big_tables, tile.size, tile_lanes, True)
     merge(cuda_fsm8.fused_pass, res)
     show(f"fused_pass packed, a {tile_lanes}-lane tile of the 100 MB text body", res)
+    symbols_rows(f"a {tile_lanes}-lane tile of the 100 MB text body (packed)",
+                 symbols_check(*onepass_items(tile_xs, big_tables, tile.size, tile_lanes)))
     del tile_xs
 
     results = {fn: results[fn] for fn in KERNELS}  # the JSON line's order
@@ -1523,7 +1624,8 @@ def main(argv: list[str]) -> int:
           "sync, emit and fused passes are serial per-lane walks, the split expansion two "
           "dependent lookups (its tail slots' column is the first lookup's value & 15) and "
           "a combine rule, the pack a per-block prefix sum and bit scatter, the compaction "
-          "a per-column stable compaction")
+          "a per-column stable compaction, the symbols kernel per-lane sums and a "
+          "selection in lane-major order over slots unpacked from the words first")
     # 3b. guard: every kernel instantiation, launched and checked inside guard bands
     t0 = time.perf_counter()
     guard_calls = sk.plan(DEV)

@@ -13,8 +13,9 @@ named ``cuda_*``:
   over the ``.et`` bytes themselves in 1 KiB blocks, with their own code
   table (as bench.py packs them);
 * ``cuda_decode_e2e_ms`` / ``_MBps`` — the fixed point plus the one-pass
-  compaction (``decode8.onepass_plane``: ``compact_symbols_dense`` for
-  m <= 3), input and output on the card, MB/s of decoded bytes;
+  extraction (``decode8.onepass_symbols``: the symbols kernel's count and
+  write launches for m <= 3, with the read of the total that sizes the
+  output), input and output on the card, MB/s of decoded bytes;
 * ``cuda_encode_e2e_ms`` / ``_MBps`` — ``pack_blocks`` plus
   ``bitpack.compact_payload_plane``, MB/s of packed bytes;
 * ``cuda_pass_bound_pct``, ``cuda_fused_pass_bound_pct``,
@@ -92,7 +93,7 @@ def calls(et: bytes, device) -> dict[str, Call]:
 
     def decode_e2e():
         v, _, _ = full()
-        return decode8.onepass_plane(v, m, packed, n_valid)
+        return decode8.onepass_symbols(v, m, packed, n_valid)
 
     arr = np.frombuffer(et, np.uint8)  # the .et bytes themselves, as bench.py packs
     table = build_code_table(histogram(arr))

@@ -9,20 +9,22 @@ route (``expand``; the JAX package's ``ENTREEPY_EXPAND`` and
 
 * ``onepass`` (default): fused passes emit the symbols with the state chain.
   For m <= 3 (the table's most symbols per byte) each byte is one masked
-  word and the dense compaction reads the plane bytes verbatim
-  (:func:`compact_symbols_dense`); for m > 3 each byte is m + 1 rows, packed
-  by the per-subgroup compaction kernel (:func:`compact_symbols_device`);
+  word, read as it is by the symbols kernel (:func:`packed_symbols`); for
+  m > 3 each byte is m + 1 rows, packed by the per-subgroup compaction
+  kernel first (:func:`plane_symbols`);
 * ``split`` / ``fused``: two-pass. Emit passes write each byte's
   pre-transition state (:func:`fsm8_decode`), an expansion kernel turns
   (byte, state) into rows through the split or the full expand table, and
-  the compaction kernel packs them;
+  the compaction kernel packs them (:func:`plane_symbols`);
 * ``host``: the emit passes' states are fetched in stream order, one byte
   per body byte, and the host runtime expands them
   (:func:`decode_body_device`).
 
-The device routes fetch the compacted plane, transposed lane-major on the
-device, and the per-lane metadata, and apply the serial-exact accept/reject
-on the host. The one-pass route streams through
+The device routes end in the symbols kernel (``ops/cuda_symbols``), which
+writes each lane's symbols at the lane's offset on the device, so the host
+fetches only the symbols in stream order and the per-lane metadata, lands
+them in the output (:func:`land_symbols`) and applies the serial-exact
+accept/reject. The one-pass route streams through
 :func:`decode_body_device_tiled`: tiles of up to ``TILE_LANES`` lanes
 decoded in stream order, each tile's lane 0 entering at the previous tile's
 last exit, tile-local positions, and each tile's fetch overlapped with the
@@ -55,6 +57,7 @@ from ..tables import (
 from ..trace import count, phase
 from . import cuda_fsm8
 from .cuda_compact import compact_rows
+from .cuda_symbols import NO_INVALID, symbol_counts, write_symbols
 from .cuda_fsm8 import emit_pass, fused_pass, sync_pass
 
 DEFAULT_CHUNK_BYTES = 512
@@ -64,7 +67,6 @@ SYNC_WINDOW = 128
 MAX_SYNC_PASSES = 24
 SUB_BYTES = 8  # bytes per compaction subgroup on the m > 3 route
 CAP_SYM_ROUND = 16  # per-subgroup symbol caps round up to this
-NO_INVALID = 1 << 30  # w_inv of a lane without an invalid transition
 # The untiled route keeps lane-linear byte positions within int32, like the
 # JAX route it ports; larger bodies belong to the streaming tiled route.
 MAX_UNTILED_BYTES = (1 << 31) - 1
@@ -160,36 +162,6 @@ def fsm8_decode(xs: torch.Tensor, next_state: torch.Tensor, n_real_lanes: int,
     return states, unconverged
 
 
-def packed_counts_inv(words: torch.Tensor, m: int):
-    """counts int32[K, lanes] and inv bool[K, lanes] straight off MASKED
-    packed words (``word >> 8m`` is 0 on padding, 16 on an invalid
-    transition, else the symbol count)."""
-    raw = words >> (8 * m)  # words are < 2^29, so this shift is logical
-    return raw & 15, raw >= 16
-
-
-def _masked_meta(counts: torch.Tensor, inv: torch.Tensor):
-    """Per-lane (lane_tot, w_inv) from per-byte counts/inv: w_inv = symbols
-    emitted before the lane's first invalid byte, NO_INVALID when none."""
-    cums = counts.cumsum(0, dtype=torch.int32) - counts
-    w_inv = torch.where(inv, cums, NO_INVALID).amin(0)
-    return counts.sum(0, dtype=torch.int32), w_inv
-
-
-def compact_symbols_dense(words: torch.Tensor, m: int):
-    """MASKED packed words -> the dense symbol plane: row ``k*m + j`` is byte
-    ``m-1-j`` of word ``k`` verbatim; dead slots carry table leftovers and
-    every consumer gates on the per-byte count. Returns (plane
-    uint8[K*m, lanes], mini_tot int32[K, lanes], lane_tot int32[lanes],
-    w_inv int32[lanes])."""
-    k, lanes = words.shape
-    counts, inv = packed_counts_inv(words, m)
-    shifts = torch.arange(8 * (m - 1), -1, -8, dtype=torch.int32, device=words.device)
-    plane = ((words[:, None, :] >> shifts[None, :, None]) & 255).to(torch.uint8)
-    lane_tot, w_inv = _masked_meta(counts, inv)
-    return plane.reshape(k * m, lanes), counts, lane_tot, w_inv
-
-
 def _expand_mask(raw: torch.Tensor, syms: torch.Tensor, n_valid: int):
     """Unpacked rows: apply the real-byte mask (lane-linear position <
     ``n_valid``) and split count | 16*invalid (row 0, int32 or uint8) ->
@@ -222,20 +194,46 @@ def _sub_width(k: int) -> int:
     return SUB_BYTES if k % SUB_BYTES == 0 else k
 
 
-def _rows_plane(counts: torch.Tensor, inv: torch.Tensor, syms: torch.Tensor, m: int):
-    """Masked unpacked rows -> the compacted plane of
-    :func:`compact_symbols_device`, its cap sized by :func:`sym_cap`."""
-    return compact_symbols_device(counts, inv, syms, m, sym_cap(counts, m))
+def _write_lanes(items: torch.Tensor, lane_n: torch.Tensor, m: int,
+             mini_tot: torch.Tensor | None = None, cap: int = 0) -> torch.Tensor:
+    """The symbols kernel's write launch over ``items`` whose lanes hold
+    ``lane_n`` int32[lanes] symbols each: their inclusive scan gives each
+    lane's end, and the last end, read back, sizes the output."""
+    ends = lane_n.cumsum(0, dtype=torch.int64)
+    return write_symbols(items, ends, int(ends[-1]), m, mini_tot, cap)
 
 
-def onepass_plane(vals: torch.Tensor, m: int, packed: bool, n_valid: int):
-    """Fused-pass rows -> (plane, mini_tot, lane_tot, w_inv): the dense
-    compaction of MASKED packed words (m <= 3), else the real-byte mask
-    (lane-linear position < ``n_valid``) and the compaction kernel."""
+def packed_symbols(words: torch.Tensor, m: int):
+    """MASKED packed words int32[K, lanes] (m <= 3) -> (symbols uint8 in
+    stream order, lane_tot int32[lanes], w_inv int32[lanes]) on their
+    device: the symbols kernel's count launch, then its write launch."""
+    count("plane_slots", words.numel() * m)
+    lane_tot, w_inv = symbol_counts(words, m)
+    return _write_lanes(words, lane_tot, m), lane_tot, w_inv
+
+
+def plane_symbols(counts: torch.Tensor, inv: torch.Tensor, syms: torch.Tensor, m: int):
+    """Masked unpacked rows -> (symbols uint8 in stream order, lane_tot,
+    w_inv): the compacted plane of :func:`compact_symbols_device`, its cap
+    sized by :func:`sym_cap`, then the symbols kernel's write launch over
+    it. ``lane_tot`` is poisoned to -1 on a cap overflow, which
+    :func:`validate_chunk_meta` then refuses; the symbols are the slots the
+    plane kept."""
+    cap = sym_cap(counts, m)
+    plane, mini_tot, lane_tot, w_inv = compact_symbols_device(counts, inv, syms, m, cap)
+    count("plane_slots", plane.numel())
+    kept = mini_tot.clamp(max=cap).sum(0, dtype=torch.int32)
+    return _write_lanes(plane, kept, 1, mini_tot, cap), lane_tot, w_inv
+
+
+def onepass_symbols(vals: torch.Tensor, m: int, packed: bool, n_valid: int):
+    """Fused-pass rows -> (symbols, lane_tot, w_inv) on their device: MASKED
+    packed words (m <= 3) straight into the symbols kernel, else the
+    real-byte mask (lane-linear position < ``n_valid``) and
+    :func:`plane_symbols`."""
     if packed:
-        plane, mini_tot, lane_tot, w_inv = compact_symbols_dense(vals, m)
-        return plane, mini_tot.to(torch.uint8), lane_tot, w_inv  # counts <= m <= 3
-    return _rows_plane(*_expand_mask(vals[:, 0], vals[:, 1:].to(torch.uint8), n_valid), m)
+        return packed_symbols(vals, m)
+    return plane_symbols(*_expand_mask(vals[:, 0], vals[:, 1:].to(torch.uint8), n_valid), m)
 
 
 def sym_cap(counts: torch.Tensor, m: int) -> int:
@@ -295,56 +293,51 @@ def validate_chunk_meta(counts: np.ndarray, w_inv: np.ndarray, n_symbols: int) -
         raise ValueError("invalid bitstream: unreachable trie edge")
 
 
-def lane_major(plane, mini_tot, lane_tot, w_inv):
-    """A compacted plane and its subgroup totals transposed on the device to
-    lane-major (plane [lanes, Gs*cap_g], mini_tot [lanes, Gs]), so the
-    host's extraction reads each lane's symbols contiguously."""
-    return plane.t().contiguous(), mini_tot.t().contiguous(), lane_tot, w_inv
+def extract_plane_symbols(syms: np.ndarray, room: int) -> np.ndarray:
+    """A fetch's symbols, already in stream order (the symbols kernel put
+    each lane's live slots at the lane's offset), cut to the ``room`` the
+    output has left -> uint8 symbols in stream order."""
+    return syms[:room]
 
 
-def extract_plane_symbols(plane, mini_tot) -> np.ndarray:
-    """Lane-major compacted symbol plane (:func:`lane_major`) -> flat uint8
-    symbols in (lane, subgroup, slot) stream order (boolean extraction
-    flattens row-major)."""
-    mt = np.asarray(mini_tot, dtype=np.int64)  # [lanes, Gs]
-    lanes, gs = mt.shape
-    arr = np.asarray(plane).reshape(lanes, gs, -1)  # [lanes, Gs, cap_g]
-    mask = np.arange(arr.shape[2], dtype=np.int64)[None, None, :] < mt[:, :, None]
-    return arr[mask]
-
-
-def fetch_symbols(plane):
-    """Fetch a compacted :func:`lane_major` plane and extract its symbols on
-    the host -> (symbols uint8 in stream order, lane_tot, w_inv). ``plane``
-    is the plane's tensors, fetched here, or the wait of a fetch that
-    :func:`_fetch_async` started earlier (the tiled decode's, behind the
-    next tile's passes). The fetched plane is let go once its symbols are
-    extracted, so a tiled decode holds one tile's plane at a time."""
+def fetch_symbols(pending):
+    """Wait for the fetch of (symbols, lane_tot, w_inv) -> their numpy
+    arrays. ``pending`` is the tensors, fetched here, or the wait of a
+    fetch that :func:`_fetch_async` started earlier (the tiled decode's,
+    behind the next tile's passes)."""
     with phase("device_sym_fetch"):
-        wait = plane if callable(plane) else _fetch_async(plane)
-        plane, mini_tot, lane_tot, w_inv = wait()
-    with phase("host_extract"):
-        syms = extract_plane_symbols(plane, mini_tot)
-    count("plane_slots", plane.size)
+        wait = pending if callable(pending) else _fetch_async(pending)
+        syms, lane_tot, w_inv = wait()
     count("symbols", syms.size)
     return syms, lane_tot, w_inv
 
 
-def assemble_symbols(parts, lane_tots, w_invs, n_symbols, table, n_body) -> np.ndarray:
+def land_symbols(pending, out: np.ndarray, at: int, metas: list) -> int:
+    """Fetch ``pending``'s symbols (:func:`fetch_symbols`) and land them in
+    ``out`` from ``at`` on, as many as fit; its (lane_tot, w_inv) joins
+    ``metas``. Returns the next free position. The fetched buffer is let go
+    on return, so a tiled decode holds one tile's symbols at a time."""
+    syms, lane_tot, w_inv = fetch_symbols(pending)
+    metas.append((lane_tot, w_inv))
+    with phase("host_extract"):
+        got = extract_plane_symbols(syms, out.size - at)
+        out[at:at + got.size] = got
+    return at + got.size
+
+
+def assemble_symbols(out, filled, metas, n_symbols, table, n_body) -> np.ndarray:
     """Serial-exact accept/reject over the concatenated per-lane metadata of
-    every tile (one list entry per tile; a singleton on the untiled routes),
-    then the tiles' extracted symbols joined and trimmed to ``n_symbols``,
-    and the exact-bit invariant."""
+    every tile (``metas``, one (lane_tot, w_inv) per tile; a singleton on
+    the untiled routes), then ``out``, whose first ``filled`` symbols the
+    tiles landed, and the exact-bit invariant."""
     with phase("host_validate"):
-        lane_tot = np.concatenate([np.asarray(c, dtype=np.int64) for c in lane_tots])
-        w_inv = np.concatenate([np.asarray(w, dtype=np.int64) for w in w_invs])
+        lane_tot = np.concatenate([np.asarray(c, dtype=np.int64) for c, _ in metas])
+        w_inv = np.concatenate([np.asarray(w, dtype=np.int64) for _, w in metas])
         w_inv[w_inv >= NO_INVALID] = -1
         validate_chunk_meta(lane_tot, w_inv, n_symbols)
-    with phase("join_output"):
-        out = np.concatenate(parts)[:n_symbols]
-    if out.size < n_symbols:
+    if filled < n_symbols:
         raise ValueError(
-            f"bitstream ended early: decoded {out.size} of {n_symbols} symbols"
+            f"bitstream ended early: decoded {filled} of {n_symbols} symbols"
         )
     with phase("host_check_bits"):
         _check_stream_bits(out, table.lengths, n_body)
@@ -395,8 +388,8 @@ def decode_body_device_full(
     expand: str = "onepass",
 ) -> np.ndarray:
     """Decode a packed body on ``device`` -> uint8[n_symbols] (host array):
-    FSM passes, symbol expansion and compaction on the device; the host
-    fetches the compacted plane and the per-lane metadata. ``expand`` picks
+    FSM passes, symbol expansion, compaction and extraction on the device;
+    the host fetches the symbols and the per-lane metadata. ``expand`` picks
     the one-pass route, which streams in tiles
     (:func:`decode_body_device_tiled`, one tile up to ``TILE_LANES``
     lanes), or a two-pass one, untiled, with the split or the full expand
@@ -425,8 +418,10 @@ def decode_body_device_full(
     if unconverged:
         return decode_host(buf, table, n_symbols)
     with phase("device_expand", n_symbols):
-        plane = lane_major(*_rows_plane(*run_expand(xs, states, tables, buf.size), tables.m))
-    return assemble_symbols(*zip(fetch_symbols(plane)), n_symbols, table, buf.size)
+        symbols = plane_symbols(*run_expand(xs, states, tables, buf.size), tables.m)
+    out, metas = np.empty(n_symbols, dtype=np.uint8), []
+    filled = land_symbols(symbols, out, 0, metas)
+    return assemble_symbols(out, filled, metas, n_symbols, table, buf.size)
 
 
 @functools.cache
@@ -485,12 +480,13 @@ def decode_body_device_tiled(
     not an option), in stream order, so each tile's lane 0 enters EXACTLY
     at the previous tile's last exit (a device tensor: the chaining reads
     nothing back) and self-sync runs within a tile. Per tile: upload, fused
-    passes to the fixed point, compaction (:func:`onepass_plane`), the
-    lane-major transpose, then the fetch of its plane, which overlaps the
-    next tile's upload and passes (depth-2 pipeline) and lands, its symbols
-    extracted on the host (:func:`fetch_symbols`), before the next tile's
-    compaction: the device and the pinned host memory hold one tile's plane
-    at a time, so neither grows with the body. Byte
+    passes to the fixed point, the symbols in stream order on the device
+    (:func:`onepass_symbols`), then the fetch of the symbols and the
+    per-lane metadata, which overlaps the next tile's upload and passes
+    (depth-2 pipeline) and lands in the output (:func:`land_symbols`)
+    before the next tile's extraction: the device and the pinned host
+    memory hold one tile's symbols at a time, so neither grows with the
+    body. Byte
     positions are tile-local, so no int32 wraps at any body size. The
     accept/reject and the exact-bit check run once over the concatenated
     per-tile metadata. A tile whose self-sync does not converge sends the
@@ -504,7 +500,7 @@ def decode_body_device_tiled(
         tables = decode_tables(build_byte_fsm(table), device)
     m = tables.m
     packed = m <= 3
-    parts, pending, entry0 = [], None, 0
+    out, filled, metas, pending, entry0 = np.empty(n_symbols, dtype=np.uint8), 0, [], None, 0
     for l0 in range(0, lanes, t_lanes):
         tl = min(t_lanes, lanes - l0)
         seg = buf[l0 * chunk_bytes:(l0 + tl) * chunk_bytes]  # seg.size: the tile's n_valid
@@ -516,18 +512,18 @@ def decode_body_device_tiled(
             )
         if unconverged:
             return decode_host(buf, table, n_symbols)
-        # this tile's columns, then the previous tile's plane, leave the device
-        # before this tile's compaction
+        # this tile's columns, then the previous tile's symbols, leave the
+        # device before this tile's extraction
         del cols
         if pending is not None:
-            parts.append(fetch_symbols(pending))
+            filled = land_symbols(pending, out, filled, metas)
         with phase("device_expand", n_symbols):
-            plane = lane_major(*onepass_plane(vals, m, packed, seg.size))
-        pending = _fetch_async(plane)
-        del vals, plane
+            symbols = onepass_symbols(vals, m, packed, seg.size)
+        pending = _fetch_async(symbols)
+        del vals, symbols
         entry0 = exits[-1:]
-    parts.append(fetch_symbols(pending))
-    return assemble_symbols(*zip(*parts), n_symbols, table, buf.size)
+    filled = land_symbols(pending, out, filled, metas)
+    return assemble_symbols(out, filled, metas, n_symbols, table, buf.size)
 
 
 def expand_states(states: np.ndarray, body: np.ndarray, fsm: ByteFsm,

@@ -31,11 +31,11 @@ Decode (:func:`decompress_sharded`): the body's chunks (lanes) are padded to
 a multiple of the world, and rank r owns lanes ``[r*L, (r+1)*L)``. The
 suffix sync pass and the fixed-point passes run on each rank's lanes, with
 one all-gather of the exit states per pass, so the entry chain spans every
-lane (``decode8._fixed_point``'s ``gather``). Then each rank expands and
-compacts its own lanes by the ``expand`` route, as ``decompress_device``
-does on one device, and extracts its symbols on the host; the per-lane
-metadata and the symbols of every rank, in rank order, are validated and
-joined once. The routes are the
+lane (``decode8._fixed_point``'s ``gather``). Then each rank expands,
+compacts and extracts its own lanes' symbols by the ``expand`` route on
+its device, as ``decompress_device`` does on one device, and fetches them
+in stream order; the per-lane metadata and the symbols of every rank, in
+rank order, are validated and joined once. The routes are the
 single-device ones; the JAX package's ``ENTREEPY_SHARDED_DEVICE_EXPAND``,
 ``ENTREEPY_EXPAND`` and ``ENTREEPY_FUSED_PACKED`` become the ``expand``
 argument and the one-pass rule m <= 3.
@@ -350,10 +350,13 @@ class _ExitGather:
             return torch.cat(_all_gather(exits, self.mesh)), self.mesh.rank * exits.numel()
 
 
-def _plane_symbols(plane):
-    """A compacted plane's fetch and host extraction -> (lane_tot, w_inv with
-    -1 for none, this rank's symbols)."""
-    syms, lane_tot, w_inv = decode8.fetch_symbols(plane)
+def _plane_symbols(symbols):
+    """The fetch of this rank's symbols, in stream order on the device, and
+    their per-lane metadata -> (lane_tot, w_inv with -1 for none, the
+    symbols)."""
+    syms, lane_tot, w_inv = decode8.fetch_symbols(symbols)
+    with phase("host_extract"):
+        syms = decode8.extract_plane_symbols(syms, syms.size)
     w_inv = w_inv.astype(np.int64)
     w_inv[w_inv >= decode8.NO_INVALID] = -1
     return lane_tot.astype(np.int64), w_inv, syms
@@ -481,12 +484,11 @@ def _decompress_rank(mesh: Mesh, buf: np.ndarray, table, n: int, fsm: ByteFsm,
     else:
         with phase("device_expand", n):
             if expand == "onepass":
-                plane = decode8.onepass_plane(vals, tables.m, packed, seg.size)
+                symbols = decode8.onepass_symbols(vals, tables.m, packed, seg.size)
             else:
-                plane = decode8._rows_plane(*decode8.run_expand(xs, states, tables, seg.size),
-                                            tables.m)
-            plane = decode8.lane_major(*plane)
-        lane_tot, w_inv, syms = _plane_symbols(plane)
+                symbols = decode8.plane_symbols(*decode8.run_expand(xs, states, tables, seg.size),
+                                                tables.m)
+        lane_tot, w_inv, syms = _plane_symbols(symbols)
     stats.update(local_symbols=int(syms.size), n_symbols=n)
     with phase("gather_symbols"):
         part = (_to_host(torch.from_numpy(np.concatenate([lane_tot, w_inv])), mesh),

@@ -31,12 +31,14 @@ A record also counts (:func:`count`, ``.counts`` of the dict
 :func:`record_stages` yields), at the boundary where the work happens:
 
 * ``h2d_bytes``: host arrays moved to the device (bodies, documents, tables);
-* ``d2h_bytes``: device tensors moved back (planes, states, payloads,
-  histograms). Scalar readbacks of a few bytes (``int()``, ``bool()``: a
-  sizing maximum, the fixed point's test) are left out, and so are a
-  process group's staging copies inside its collectives;
-* ``plane_slots`` / ``symbols``: slots of the fetched symbol plane that the
-  host's extraction scans, and the symbols it finds there;
+* ``d2h_bytes``: device tensors moved back (a decode's symbols and their
+  per-lane metadata, states, payloads, histograms). Scalar readbacks of a
+  few bytes (``int()``, ``bool()``: a sizing maximum or total, the fixed
+  point's test) are left out, and so are a process group's staging copies
+  inside its collectives;
+* ``plane_slots`` / ``symbols``: the slots a device decode route's symbols
+  come from (K·m·lanes of packed words, or the compacted plane's slots),
+  and the symbols the symbols kernel wrote and the host fetched;
 * ``fsm_builds``: byte automata built, each a miss of ``build_byte_fsm``'s
   cache (the stage ``fsm_build``).
 

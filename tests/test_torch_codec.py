@@ -206,7 +206,7 @@ def test_record_stages_times_every_stage(midsummer):
                          "join_tiles", "stitch", "serialize"]
     assert list(dec) == ["parse_header", "fsm_build", "decode_tables", "body_upload",
                          "device_fsm8_decode", "device_expand", "device_sym_fetch",
-                         "host_extract", "host_validate", "join_output", "host_check_bits"]
+                         "host_extract", "host_validate", "host_check_bits", "join_output"]
     assert all(ms >= 0 for ms in [*enc.values(), *dec.values()])
     entreepy_tpu_torch.decompress(et, backend="device", device="cpu")
     assert len(dec) == 11

@@ -17,7 +17,7 @@ from entreepy_tpu.ops import decode8 as jd  # noqa: E402
 from entreepy_tpu.ops.pallas_compact import compact_rows_pallas  # noqa: E402
 
 from entreepy_tpu_torch.ops import bitpack as tb  # noqa: E402
-from entreepy_tpu_torch.ops import cuda_compact  # noqa: E402
+from entreepy_tpu_torch.ops import cuda_compact, cuda_symbols  # noqa: E402
 from entreepy_tpu_torch.ops import decode8 as td  # noqa: E402
 
 
@@ -133,7 +133,7 @@ def test_compact_symbols_dense_matches_jax(pruned, midsummer):
         jnp.int32(lanes), m, mt, s, packed=True, n_valid=jnp.int32(body.size),
     )
     want = jd.compact_symbols_dense(words, m)
-    got = td.compact_symbols_dense(torch.from_numpy(np.array(words)), m)
+    got = cuda_symbols.compact_symbols_dense(torch.from_numpy(np.array(words)), m)
     assert (got[3].numpy() < td.NO_INVALID).any() == pruned
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w))

@@ -21,7 +21,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import entreepy_tpu_torch as et  # noqa: E402
-from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, decode8  # noqa: E402
+from entreepy_tpu_torch.bench import make_corpus  # noqa: E402
+from entreepy_tpu_torch.ops import (  # noqa: E402
+    cuda_compact, cuda_fsm8, cuda_pack, cuda_symbols, decode8,
+)
 from entreepy_tpu_torch.tables import (  # noqa: E402
     body_for,
     code_tensors_for,
@@ -631,6 +634,118 @@ def test_wrappers_reject_bad_operands(dev):
         cuda_fsm8.expand_pass(xs, xs, full, 9)
     with pytest.raises(ValueError):  # a full table of another dtype
         cuda_fsm8.expand_pass(xs, xs, full[:, :512].int(), 3)
+
+
+def _symbols_equal(items, m, dev, mini_tot=None, cap=0):
+    """The symbols kernel's launches against their plain versions on the
+    card: lane_tot and w_inv (packed form) and the symbols, exactly."""
+    if mini_tot is None:
+        before = cuda_symbols.symbol_counts.launches
+        tot, inv = cuda_symbols.symbol_counts(items, m)
+        want_tot, want_inv = cuda_symbols.symbol_counts_plain(items, m)
+        assert cuda_symbols.symbol_counts.launches == before + 1
+        assert torch.equal(tot, want_tot) and torch.equal(inv, want_inv)
+    else:
+        tot = mini_tot.clamp(max=cap).sum(0, dtype=torch.int32)
+    ends = tot.cumsum(0, dtype=torch.int64)
+    total = int(ends[-1])
+    before = cuda_symbols.write_symbols.launches
+    got = cuda_symbols.write_symbols(items, ends, total, m, mini_tot, cap)
+    want = cuda_symbols.write_symbols_plain(items, ends, total, m, mini_tot, cap)
+    torch.cuda.synchronize()
+    assert cuda_symbols.write_symbols.launches == before + 1
+    assert got.shape == (total,) and torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("k,lanes", [(1, 1), (17, 31), (64, 33), (65, 40), (512, 5958)])
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_symbols_packed_shapes(m, k, lanes, dev):
+    """Random MASKED words (invalid words, padding lanes, leftovers in dead
+    slots) at odd row and lane counts: chunks of rows and tiles of lanes
+    with ragged edges."""
+    rng = np.random.default_rng(m * 7 + k)
+    raw = rng.integers(0, m + 1, (k, lanes))
+    raw[rng.random((k, lanes)) < 0.02] = 16
+    raw[:, lanes - lanes // 8:] = 0  # padding lanes
+    words = (raw << (8 * m) | rng.integers(0, 1 << (8 * m), (k, lanes))).astype(np.int32)
+    _symbols_equal(torch.from_numpy(words).to(dev), m, dev)
+
+
+def _tile_rows(kind: str, n_bytes: int, lanes: int, dev):
+    """(fused-pass rows of the first ``lanes`` 512-B lanes of a corpus's
+    body at the fixed point, the tables, the tile's n_valid), as the
+    one-pass route makes them."""
+    blob = et.compress(make_corpus(kind, n_bytes), backend="host")
+    tables, buf = decode_tables_for(blob, dev)
+    seg = buf[: lanes * decode8.DEFAULT_CHUNK_BYTES]
+    tl = -(-seg.size // decode8.DEFAULT_CHUNK_BYTES)
+    cols = decode8._upload_body(seg, tl, decode8.DEFAULT_CHUNK_BYTES, dev)
+    vals, _, unconverged = decode8.fsm8_decode_fused(
+        cols, tables.next_state, tables.fused, tl, tables.m, tables.mt, tables.s,
+        packed=tables.m <= 3, n_valid=seg.size)
+    assert not unconverged
+    return vals, tables, seg.size
+
+
+@pytest.mark.parametrize("n_bytes,lanes", [(5_200_000, 5958), (60_000_000, 65536)])
+def test_symbols_packed_text_tiles(n_bytes, lanes, dev):
+    """The text family at m = 3, packed: the 5.2 MB body's one tile (5,958
+    lanes) and a full 65,536-lane tile of a larger body, as the decode
+    cells run them."""
+    vals, tables, _ = _tile_rows("text", n_bytes, lanes, dev)
+    assert tables.m == 3 and vals.shape == (512, lanes)
+    got = _symbols_equal(vals, 3, dev)
+    assert got.numel() > 512 * lanes
+
+
+@pytest.mark.parametrize("kind,m", [("skewed", 4), ("runheavy", 8)])
+def test_symbols_plane_form(kind, m, dev):
+    """The plane form on the m = 4 and m = 8 bodies: the compaction kernel's
+    subgroup plane of the fused pass's masked rows, as the route makes it."""
+    vals, tables, n_valid = _tile_rows(kind, 5_000_000, 1 << 20, dev)
+    assert tables.m == m
+    counts, inv, syms = decode8._expand_mask(vals[:, 0], vals[:, 1:].to(torch.uint8), n_valid)
+    cap = decode8.sym_cap(counts, m)
+    plane, mini_tot, _, _ = decode8.compact_symbols_device(counts, inv, syms, m, cap)
+    _symbols_equal(plane, 1, dev, mini_tot, cap)
+
+
+@pytest.mark.parametrize("kind", ["text", "skewed"])
+def test_decompress_extracts_once_per_tile(kind, dev):
+    """``decompress(backend="device")`` extracts its symbols on the card:
+    one write launch per tile, beside one count launch per tile on the
+    packed route (text, m = 3) and none on the plane form (skewed); so too
+    per tile of a narrow tiling."""
+    data = _corpus(kind, 20000)
+    blob = et.compress(data, backend="host")
+    table, n, buf = body_for(blob)
+    packed, lanes = kind == "text", -(-buf.size // 64)
+    for tile_lanes, tiles in ((None, 1), (7, -(-lanes // 7))):
+        counts = cuda_symbols.symbol_counts.launches_on[dev.index or 0]
+        writes = cuda_symbols.write_symbols.launches_on[dev.index or 0]
+        if tile_lanes is None:
+            assert et.decompress(blob, backend="device") == data
+        else:
+            got = decode8.decode_body_device_tiled(buf, table, n, device=dev, chunk_bytes=64,
+                                                   tile_lanes=tile_lanes)
+            assert bytes(got) == data
+        assert cuda_symbols.write_symbols.launches_on[dev.index or 0] - writes == tiles
+        assert cuda_symbols.symbol_counts.launches_on[dev.index or 0] - counts == tiles * packed
+
+
+def test_symbols_wrappers_reject_bad_operands(dev):
+    words = torch.zeros((8, 4), dtype=torch.int32, device=dev)
+    ends = torch.zeros(4, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):  # not contiguous
+        cuda_symbols.symbol_counts(torch.zeros((4, 8), dtype=torch.int32, device=dev).t(), 3)
+    with pytest.raises(ValueError):  # words of another dtype
+        cuda_symbols.symbol_counts(words.long(), 3)
+    with pytest.raises(ValueError):  # ends of another dtype
+        cuda_symbols.write_symbols(words, ends.int(), 0, 3)
+    with pytest.raises(ValueError):  # a plane of int32
+        cuda_symbols.write_symbols(words, ends, 0, 1, torch.zeros((4, 4), dtype=torch.int32,
+                                                                  device=dev), 2)
 
 
 @pytest.mark.parametrize("tile_lanes", [1, 7, 64])

@@ -21,12 +21,14 @@ import large_check as lg  # noqa: E402
 from entreepy_tpu_torch import compress  # noqa: E402
 from entreepy_tpu_torch.bench import make_corpus  # noqa: E402
 from entreepy_tpu_torch.format import parse_header  # noqa: E402
-from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, decode8, encode  # noqa: E402
+from entreepy_tpu_torch.ops import (  # noqa: E402
+    cuda_compact, cuda_fsm8, cuda_pack, cuda_symbols, decode8, encode,
+)
 from entreepy_tpu_torch.parallel import dist as pdist  # noqa: E402
 
 KERNELS = (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_fsm8.emit_pass,
            cuda_fsm8.expand_pass_split, cuda_fsm8.expand_pass, cuda_pack.pack_blocks,
-           cuda_compact.compact_rows)
+           cuda_compact.compact_rows, cuda_symbols.symbol_counts, cuda_symbols.write_symbols)
 RANDOM_BYTES = 80_000  # 256 codes of 8 bits: an 80,000 B body, 157 lanes of 512 B
 
 

@@ -2,7 +2,7 @@
 
 * ``tools/_sanitize_torch_driver.py`` (the driver of ``tools/sanitize_torch.sh``)
   run uninstrumented: it reaches all 12 entry points of the host runtime;
-* the 34 kernel instantiations of ``tools/sanitize_kernels.py`` against the
+* the 37 kernel instantiations of ``tools/sanitize_kernels.py`` against the
   dispatch code of ``csrc/``, and its calls, which reach them, through the
   plain versions;
 * its guard bands, on faults made on purpose and on every call.
@@ -43,8 +43,8 @@ def test_sanitize_script_rejects_unknown_tool():
 
 def test_instantiations_are_the_sources():
     """INSTANTIATIONS names exactly the instantiations the dispatch code of
-    csrc/ names, 34 of them."""
-    assert len(sk.INSTANTIATIONS) == len(set(sk.INSTANTIATIONS)) == 34
+    csrc/ names, 37 of them."""
+    assert len(sk.INSTANTIATIONS) == len(set(sk.INSTANTIATIONS)) == 37
     assert sk.source_instantiations() == set(sk.INSTANTIATIONS)
 
 
@@ -72,6 +72,9 @@ def test_instantiations_are_the_sources():
     (sk.compact_instantiation, (1537, 1), "compact_serial_kernel"),
     (sk.compact_instantiation, (64, 65536), "compact_serial_kernel"),
     (sk.walk_instantiation, (True,), "walk_kernel<true>"),
+    # symbols.cu: the packed form's two launches and the plane form's write
+    (sk.symbols_instantiation, (False, False), "symbols_kernel<false, false>"),
+    (sk.symbols_instantiation, (True, True), "symbols_kernel<true, true>"),
 ])
 def test_dispatch_rule(rule, args, want):
     assert rule(*args) == want
@@ -79,7 +82,7 @@ def test_dispatch_rule(rule, args, want):
 
 def test_plan_reaches_every_instantiation():
     """The calls, laid out on the CPU: by the dispatch rules they
-    reach all 34 instantiations, at lanes 1, 7, 33 and 300."""
+    reach all 37 instantiations, at lanes 1, 7, 33 and 300."""
     calls = sk.plan("cpu")
     assert {c.instantiation for c in calls} == set(sk.INSTANTIATIONS)
     for lanes in (1, 7, 33, 300):
@@ -103,7 +106,7 @@ def test_child_runs_on_cpu():
     r = subprocess.run([sys.executable, "tools/sanitize_kernels.py", "--device", "cpu"],
                        cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert "reached 34/34 instantiations" in r.stdout
+    assert "reached 37/37 instantiations" in r.stdout
     assert r.stdout.count(": exact") == 9
 
 

@@ -184,15 +184,15 @@ def test_encode_default_tile_width():
 
 
 def test_tile_fetch_lands_before_next_compaction(monkeypatch, midsummer):
-    """The previous tile's plane is fetched, and let go on the device, before
-    the next tile's compaction runs: one tile's plane at most is on the device
-    through a compaction, so the tiled decode's peak does not grow with the
-    number of tiles (the JAX package's decode has no device-side copy to wait
-    for)."""
+    """The previous tile's symbols are fetched, and let go on the device,
+    before the next tile's extraction runs: one tile's symbols at most are on
+    the device through an extraction, so the tiled decode's peak does not
+    grow with the number of tiles (the JAX package's decode has no
+    device-side copy to wait for)."""
     data = midsummer[:20000]
     _, hdr, body = _parts(data)
     events = []
-    real_fetch, real_plane = td._fetch_async, td.onepass_plane
+    real_fetch, real_plane = td._fetch_async, td.onepass_symbols
 
     def fetch(tensors):
         i = sum(e[0] == "fetch" for e in events)
@@ -210,7 +210,7 @@ def test_tile_fetch_lands_before_next_compaction(monkeypatch, midsummer):
         return real_plane(*a, **k)
 
     monkeypatch.setattr(td, "_fetch_async", fetch)
-    monkeypatch.setattr(td, "onepass_plane", plane)
+    monkeypatch.setattr(td, "onepass_symbols", plane)
     got = td.decode_body_device_tiled(body, hdr.table, hdr.body_len, device="cpu",
                                       chunk_bytes=CHUNK, tile_lanes=8)
     assert bytes(got) == data
@@ -221,10 +221,10 @@ def test_tile_fetch_lands_before_next_compaction(monkeypatch, midsummer):
 
 
 def test_tile_fetch_is_let_go_once_extracted(monkeypatch, midsummer):
-    """Each tile's fetched plane (pinned host memory on the card) is let go
-    once its symbols are extracted, before the next tile's fetch starts: the
-    host holds one tile's plane at a time, not one per tile until assembly,
-    and the wait of a landed fetch keeps no buffer of it."""
+    """Each tile's fetched symbols (pinned host memory on the card) are let
+    go once they land in the output, before the next tile's fetch starts:
+    the host holds one tile's symbols at a time, not one per tile until
+    assembly, and the wait of a landed fetch keeps no buffer of it."""
     import weakref
 
     data = midsummer[:20000]
@@ -235,13 +235,13 @@ def test_tile_fetch_is_let_go_once_extracted(monkeypatch, midsummer):
         return [r for r in planes if r() is not None]
 
     def fetch(tensors):
-        assert not held(), "an earlier tile's plane is still held"
+        assert not held(), "an earlier tile's symbols are still held"
         wait = real_fetch(tensors)
-        planes.extend(weakref.ref(t) for t in tensors[:2])  # the plane and its mini_tot
+        planes.append(weakref.ref(tensors[0]))  # the symbols
 
         def landed():
             got = wait()
-            planes.extend(weakref.ref(a) for a in got[:2])
+            planes.append(weakref.ref(got[0]))
             return got
 
         return landed
@@ -249,7 +249,7 @@ def test_tile_fetch_is_let_go_once_extracted(monkeypatch, midsummer):
     monkeypatch.setattr(td, "_fetch_async", fetch)
     got = td.decode_body_device_tiled(body, hdr.table, hdr.body_len, device="cpu",
                                       chunk_bytes=CHUNK, tile_lanes=8)
-    assert bytes(got) == data and len(planes) == 4 * -(-len(body) // (8 * CHUNK)) > 8
+    assert bytes(got) == data and len(planes) == 2 * -(-len(body) // (8 * CHUNK)) > 4
     assert not held()
 
 

@@ -102,8 +102,7 @@ def test_every_stage_is_a_range_inside_its_call(op, et, midsummer):
     assert all(c0 <= s <= e <= c1 and t == thread for _, s, e, t in stages)
     by_end = [name.removeprefix("entreepy.") for name, *_ in sorted(stages, key=lambda g: g[2])]
     assert list(dict.fromkeys(by_end)) == list(rec)
-    twice = {"join_output"} if op == "decompress" else set()  # the join, then the bytes
-    assert Counter(by_end) == {name: 1 + (name in twice) for name in rec}
+    assert Counter(by_end) == {name: 1 for name in rec}
     if op == "decompress":
         span = {name: (s, e) for name, s, e, _ in stages}
         (bs, be), (ts, te) = span["entreepy.fsm_build"], span["entreepy.decode_tables"]
@@ -113,8 +112,8 @@ def test_every_stage_is_a_range_inside_its_call(op, et, midsummer):
 @pytest.mark.parametrize("n_tiles", [1, 2])
 def test_decode_link_bytes(n_tiles, et, midsummer):
     """One-pass decode in one tile and in two: the tables and each tile's
-    padded body go up; each tile's 3-slot plane, its 1-byte subgroup totals
-    and two int32 words per lane come back."""
+    padded body go up; each tile's symbols, in stream order, and two int32
+    words per lane come back, not its 3-slot plane."""
     hdr = parse_header(et)
     body = np.frombuffer(et, dtype=np.uint8)[hdr.body_start:]
     tables = decode_tables(fsm8.build_byte_fsm(hdr.table), "cpu")
@@ -129,7 +128,28 @@ def test_decode_link_bytes(n_tiles, et, midsummer):
     assert got.tobytes() == midsummer
     tables_bytes = tables.next_state.numel() + tables.fused.numel()
     assert rec.counts["h2d_bytes"] == tables_bytes + sum(tl * CHUNK for tl in tiles)
-    assert rec.counts["d2h_bytes"] == sum(tl * (CHUNK * 3 + CHUNK + 8) for tl in tiles)
+    assert rec.counts["d2h_bytes"] == rec.counts["symbols"] + 8 * lanes
+    assert len(midsummer) <= rec.counts["symbols"] < len(midsummer) + 8 * lanes
+
+
+@pytest.mark.parametrize("expand", ["onepass", "split", "fused"])
+@pytest.mark.parametrize("kind", ["text", "skewed"])
+def test_decode_fetches_symbols_not_the_plane(kind, expand):
+    """Every device route's fetch is its symbols, in stream order, and two
+    int32 words per lane (lane_tot, w_inv): the packed route (text, m = 3)
+    and the plane form (skewed, m = 4, and both two-pass routes) alike,
+    fewer bytes than the slots the symbols came from."""
+    from entreepy_tpu_torch.bench import make_corpus
+
+    data = make_corpus(kind, 20_000)
+    et = compress_host(data)
+    lanes = -(-(len(et) - parse_header(et).body_start) // CHUNK)
+    with trace.record_stages() as rec:
+        assert entreepy_tpu_torch.decompress(et, backend="device", device="cpu",
+                                             expand=expand) == data
+    c = rec.counts
+    assert c["d2h_bytes"] == c["symbols"] + 8 * lanes
+    assert len(data) <= c["symbols"] < c["plane_slots"]
 
 
 @pytest.mark.parametrize("tile_blocks", [None, 64])
@@ -164,12 +184,13 @@ def test_encode_link_bytes(tile_blocks, monkeypatch, midsummer):
 
 
 def test_plane_slots_and_symbols(monkeypatch, et, midsummer):
-    """``plane_slots`` is every slot of the packed plane, 3 per body byte of
-    each lane's 512; ``symbols`` what the extraction returned."""
+    """``plane_slots`` is every slot the packed route's symbols come from, 3
+    per body byte of each lane's 512; ``symbols`` what the fetch brought
+    back, all of which the extraction returned (the output had room)."""
     extracted, real = [], decode8.extract_plane_symbols
 
-    def spy(plane, mini_tot):
-        out = real(plane, mini_tot)
+    def spy(syms, room):
+        out = real(syms, room)
         extracted.append(out.size)
         return out
 

@@ -357,7 +357,7 @@ def test_unconverged_state_pass_uses_host_decoder(mode, monkeypatch, midsummer):
 
 DEVICE_STAGES = ["parse_header", "fsm_build", "decode_tables", "body_upload",
                  "device_fsm8_decode", "device_expand", "device_sym_fetch", "host_extract",
-                 "host_validate", "join_output", "host_check_bits"]
+                 "host_validate", "host_check_bits", "join_output"]
 
 
 @pytest.mark.parametrize("mode,stages", [

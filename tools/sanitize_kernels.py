@@ -1,7 +1,7 @@
 """Every CUDA kernel instantiation of entreepy_tpu_torch, launched at small
 odd shapes and checked inside poisoned guard bands.
 
-:func:`plan` lays out calls that launch each of the 34 template
+:func:`plan` lays out calls that launch each of the 37 template
 instantiations of ``csrc/`` at least once, through the kernel wrappers of
 ``ops/cuda_*.py``, at shapes that reach every guard (lanes 1, 7, 33 and 300;
 partial last chunks, blocks and rounds; k = 1, 16, 17, 33, 48 and 512); the
@@ -57,9 +57,10 @@ INSTANTIATIONS = (
     *(f"expand_kernel<{m1}, 4, true>" for m1 in (2, 3, 4)),
     *(f"expand_kernel<{m + 1}, {4 if m < 4 else 8 if m < 8 else 16}, false>"
       for m in range(1, 9)),
+    "symbols_kernel<false, false>", "symbols_kernel<false, true>", "symbols_kernel<true, true>",
 )
 PORT_KERNELS = ("walk_kernel", "fused_kernel", "pack_kernel", "compact_tile_kernel",
-                "compact_serial_kernel", "expand_split_kernel", "expand_kernel")
+                "compact_serial_kernel", "expand_split_kernel", "expand_kernel", "symbols_kernel")
 
 
 # ---- the dispatch rules of csrc/, one per C entry point ----
@@ -98,6 +99,12 @@ def expand_instantiation(m: int, s: int, smem_max: int = H100_SMEM_OPTIN) -> str
     p = 4 if m < 4 else 8 if m < 8 else 16
     staged = p == 4 and 256 * s * p <= smem_max
     return f"expand_kernel<{m + 1}, {p}, {'true' if staged else 'false'}>"
+
+
+def symbols_instantiation(plane: bool, write: bool) -> str:
+    """symbols.cu et_symbol_counts (packed words), et_symbol_write (a plane
+    when mini_tot is given, else packed words)."""
+    return f"symbols_kernel<{'true' if plane else 'false'}, {'true' if write else 'false'}>"
 
 
 def source_instantiations() -> set[str]:
@@ -190,7 +197,7 @@ def plan(device) -> list[Call]:
     import torch
 
     import entreepy_tpu_torch as et
-    from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack
+    from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, cuda_symbols
     from entreepy_tpu_torch.tables import code_tensors_for, decode_tables_for, expand_tables_for
 
     device = torch.device(device)
@@ -296,6 +303,26 @@ def plan(device) -> list[Call]:
         ek = dev(rng.random((groups * sub, lanes)) < 0.6)
         add(f"compact_rows lanes={lanes} groups={groups} sub={sub} cap={cap}",
             compact_instantiation(cap, groups), cuda_compact.compact_rows, wk, ek, sub, cap)
+
+    # symbols_kernel: packed words (counts, write) for m = 1..3 with invalid words and
+    # padding lanes, partial chunks of 64 rows and tiles of 32 lanes; a plane's write
+    for i, m in enumerate((1, 2, 3)):
+        k, lanes = shapes[i + 3]
+        raw = rng.integers(0, m + 1, (k, lanes))
+        raw[rng.random((k, lanes)) < 0.05] = 16
+        raw[:, lanes - lanes // 4:] = 0
+        words = (raw << (8 * m) | rng.integers(0, 1 << (8 * m), (k, lanes))).astype(np.int32)
+        ends = np.cumsum((raw & 15).sum(0))
+        add(f"symbol_counts m={m} k={k} lanes={lanes}", symbols_instantiation(False, False),
+            cuda_symbols.symbol_counts, dev(words), m)
+        add(f"write_symbols m={m} k={k} lanes={lanes}", symbols_instantiation(False, True),
+            cuda_symbols.write_symbols, dev(words), dev(ends), int(ends[-1]), m)
+    for lanes, groups, cap in ((33, 3, 48), (7, 2, 16)):
+        mini = rng.integers(0, cap + 1, (groups, lanes)).astype(np.int32)
+        ends = np.cumsum(mini.sum(0))
+        add(f"write_symbols plane lanes={lanes} groups={groups} cap={cap}",
+            symbols_instantiation(True, True), cuda_symbols.write_symbols,
+            u8(groups * cap, lanes), dev(ends), int(ends[-1]), 1, dev(mini), cap)
     return calls
 
 
@@ -476,7 +503,7 @@ def profiled_instantiations(calls: list[Call], device) -> set[str]:
 
 def run_calls(device) -> int:
     """Every call of :func:`plan`, then :func:`api_round_trips`; prints the
-    call that reaches each instantiation and ``reached N/34``."""
+    call that reaches each instantiation and ``reached N/37``."""
     import torch
 
     missing = set(INSTANTIATIONS) ^ source_instantiations()
