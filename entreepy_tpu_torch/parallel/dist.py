@@ -47,6 +47,24 @@ run on the gathered values, in the host tail. On a local mesh a rank
 that raises all the same aborts the barrier: every other rank stops at its
 next exchange instead of waiting, and the caller gets the first rank's
 error. ``LOCAL_TIMEOUT_S`` bounds any wait at the barrier.
+
+The exchanges are timed and counted where a record is open
+(``trace.record_stages``), on every kind of mesh, at the collectives
+(:func:`_all_gather`, :func:`_all_reduce`). Stage ``mesh_wait`` is the time
+a rank waits for the others: a local mesh's two barriers of an exchange, a
+group's collective calls. Stage ``mesh_copy`` is what the rank then does to
+take the others' tensors: on a local mesh their copies onto its device,
+``combine`` and the synchronize after it; on a group's mesh the copy back
+from the collective's device. A rank alone records both around an empty
+exchange (about 0 ms). They nest in the stage that calls the collective:
+``allgather_exits`` (one exchange per pass), the encode's
+``device_histogram`` (the all-reduce), and on a group's mesh also
+``gather_symbols`` / ``gather_payload`` (a local mesh's ranks fetch their
+own parts there and exchange nothing). Counts, per rank where something is
+exchanged (a mesh of one rank counts none), summed over a local mesh's
+ranks for the caller as every count is: ``mesh_exchanges``, one per
+exchange, and ``p2p_bytes``, the bytes of the other ranks' tensors the rank
+takes in it.
 """
 
 from __future__ import annotations
@@ -122,15 +140,22 @@ class _Meet:
         side's stream is synchronized before the barrier it meets: the
         producer's, so that no copy reads ``t`` early, then this rank's
         (the copies and ``combine``), so that no rank frees or overwrites
-        its ``t`` while another still reads it."""
+        its ``t`` while another still reads it. Stages ``mesh_wait`` (both
+        barriers) and ``mesh_copy`` (the copies, ``combine`` and the
+        synchronize after them); counts as :func:`_count_exchange`."""
         if t.is_cuda:
             torch.cuda.current_stream(t.device).synchronize()
         self.slots[rank] = t
-        self.barrier.wait()
-        out = combine([p.to(t.device) for p in self.slots])
-        if t.is_cuda:
-            torch.cuda.current_stream(t.device).synchronize()
-        self.barrier.wait()
+        with phase("mesh_wait"):
+            self.barrier.wait()
+        with phase("mesh_copy"):
+            out = combine([p.to(t.device) for p in self.slots])
+            if t.is_cuda:
+                torch.cuda.current_stream(t.device).synchronize()
+        _count_exchange(sum(p.numel() * p.element_size()
+                            for r, p in enumerate(self.slots) if r != rank))
+        with phase("mesh_wait"):
+            self.barrier.wait()
         self.slots[rank] = None
         return out
 
@@ -211,6 +236,23 @@ def _publish(stats: dict, got: dict) -> None:
 
 # --- collectives: the only calls into torch.distributed ---
 
+def _count_exchange(taken: int) -> None:
+    """One exchange of this rank with the others, in which it took
+    ``taken`` bytes of their tensors (counts ``mesh_exchanges`` and
+    ``p2p_bytes``; whatever the device, as the other counts)."""
+    trace.count("mesh_exchanges", 1)
+    trace.count("p2p_bytes", taken)
+
+
+def _lone_exchange() -> None:
+    """A rank alone exchanges nothing: its stages are recorded around the
+    empty exchange, as every mesh records them, and it counts none."""
+    with phase("mesh_wait"):
+        pass
+    with phase("mesh_copy"):
+        pass
+
+
 def _comm_device(mesh: Mesh) -> torch.device:
     """The device the group's collectives take tensors on: the mesh's device
     where the group runs NCCL for its type, else the host (gloo's
@@ -226,11 +268,15 @@ def _all_reduce(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         return t.copy_(mesh.meet.exchange(
             t, mesh.rank, lambda parts: torch.stack(parts).sum(0, dtype=t.dtype)))
     if mesh.group is None or mesh.world == 1:
+        _lone_exchange()
         return t
     comm = _comm_device(mesh)
     buf = t.to(comm)
-    dist.all_reduce(buf, group=mesh.group)
-    return t if buf is t else t.copy_(buf)
+    with phase("mesh_wait"):
+        dist.all_reduce(buf, group=mesh.group)
+    _count_exchange((mesh.world - 1) * t.numel() * t.element_size())
+    with phase("mesh_copy"):
+        return t if buf is t else t.copy_(buf)
 
 
 def _all_gather(t: torch.Tensor, mesh: Mesh, *, ragged: bool = False) -> list[torch.Tensor]:
@@ -241,6 +287,7 @@ def _all_gather(t: torch.Tensor, mesh: Mesh, *, ragged: bool = False) -> list[to
     if mesh.meet is not None:
         return mesh.meet.exchange(t, mesh.rank, list)
     if mesh.group is None or mesh.world == 1:
+        _lone_exchange()
         return [t]
     comm = _comm_device(mesh)
     buf = t.to(comm)
@@ -248,12 +295,16 @@ def _all_gather(t: torch.Tensor, mesh: Mesh, *, ragged: bool = False) -> list[to
     if ragged:
         n = torch.tensor([t.numel()], dtype=torch.int64, device=comm)
         got = [torch.empty_like(n) for _ in range(mesh.world)]
-        dist.all_gather(got, n, group=mesh.group)
+        with phase("mesh_wait"):
+            dist.all_gather(got, n, group=mesh.group)
         sizes = [int(g) for g in got]
         buf = torch.cat([buf, buf.new_zeros(max(*sizes, 1) - t.numel())])
     parts = [torch.empty_like(buf) for _ in range(mesh.world)]
-    dist.all_gather(parts, buf, group=mesh.group)
-    return [p[:n].to(t.device) for p, n in zip(parts, sizes)]
+    with phase("mesh_wait"):
+        dist.all_gather(parts, buf, group=mesh.group)
+    _count_exchange((sum(sizes) - t.numel()) * t.element_size())
+    with phase("mesh_copy"):
+        return [p[:n].to(t.device) for p, n in zip(parts, sizes)]
 
 
 def _to_host(t: torch.Tensor, mesh: Mesh, *, ragged: bool = False) -> list[np.ndarray]:

@@ -40,7 +40,16 @@ A record also counts (:func:`count`, ``.counts`` of the dict
   come from (K·m·lanes of packed words, or the compacted plane's slots),
   and the symbols the symbols kernel wrote and the host fetched;
 * ``fsm_builds``: byte automata built, each a miss of ``build_byte_fsm``'s
-  cache (the stage ``fsm_build``).
+  cache (the stage ``fsm_build``);
+* ``mesh_exchanges`` / ``p2p_bytes``: a sharded rank's exchanges with the
+  other ranks, and the bytes of their tensors it took in them (counted only
+  where something is exchanged; ``parallel.dist``).
+
+The sharded backend's exchanges are also stages, ``mesh_wait`` (a rank
+waiting for the others) and ``mesh_copy`` (taking their tensors onto its
+device), nested in the stage that calls the collective (``allgather_exits``
+once per pass, the encode's ``device_histogram``), so that no other stage
+changes its definition; ``parallel.dist``'s docstring has their bounds.
 
 The sites count whatever the device, so a CPU run counts the bytes the
 pipeline hands across as the card's would; outside a record a count does

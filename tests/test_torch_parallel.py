@@ -21,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from entreepy_tpu_torch import trace  # noqa: E402
 from entreepy_tpu_torch.format import compress_host as port_compress_host  # noqa: E402
 from entreepy_tpu_torch.format import parse_header  # noqa: E402
 from entreepy_tpu_torch.parallel import (  # noqa: E402
@@ -80,6 +81,10 @@ def _worker(world: int, rank: int, port: int, out: str) -> None:
             ok = decompress_sharded(et, mesh, chunk_bytes=chunk, expand=route) == data
             res[name]["routes"][route] = {"ok": ok, "stats": dict(pdist.last_decode_stats)}
     midsummer = _cases()["midsummer"][0]
+    with trace.record_stages() as rec:
+        ok = decompress_sharded(port_compress_host(midsummer), mesh) == midsummer
+    res["exchanges"] = {"ok": ok, "stages": sorted(rec), "counts": dict(rec.counts),
+                        **pdist.last_decode_stats}
     fetch = midsummer * 10
     res["fetch"] = {"et": _sha(compress_sharded(fetch, mesh, block_bytes=4096)),
                     "size": len(fetch), **pdist.last_encode_stats}
@@ -234,6 +239,22 @@ def test_ranks_other_paths(world):
     _, ranks = world
     for r in ranks:
         assert r["host_stream"] and r["big_body"] and r["multihost"]["ok"]
+
+
+def test_ranks_count_their_exchanges(world):
+    """A group's rank times its collectives (``mesh_wait``) and the copies
+    back (``mesh_copy``), and counts each exchange and the other ranks'
+    bytes it took: one all-gather of int32 exit states per pass and the
+    suffix sync, then the int64 lane metadata and the symbols."""
+    n, ranks = world
+    ex = [r["exchanges"] for r in ranks]
+    every_symbol = sum(e["local_symbols"] for e in ex)
+    for e in ex:
+        assert e["ok"] and {"mesh_wait", "mesh_copy"} <= set(e["stages"])
+        exits = e["passes"] + 1
+        assert e["counts"]["mesh_exchanges"] == exits + 2
+        others = (n - 1) * (exits * 4 * e["lanes"] + 16 * e["lanes"])
+        assert e["counts"]["p2p_bytes"] == others + every_symbol - e["local_symbols"]
 
 
 def test_ranks_import_no_jax(world):
