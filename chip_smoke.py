@@ -11,7 +11,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 1. device  — the card's name and power limit (nvidia-smi), CUDA version,
              capability (must be 9.0), nvcc;
 2. build   — compile the kernels of entreepy_tpu_torch/csrc with nvcc;
-3. kernels — each of the nine kernels against its plain PyTorch version at
+3. kernels — each of the ten kernels against its plain PyTorch version at
              the shapes of the 5.2 MB text corpus (and of the skewed and
              run-heavy corpora for the unpacked fused pass, the sync pass's
              and the emit pass's 256-state tables and the expansions' wider
@@ -23,16 +23,18 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              tiles, the plane form at the skewed and run-heavy bodies') also
              at a full 65,536-lane tile of the
              100 MB text body, the pack at a full 32 MiB encode tile of the
-             100 MB text; a kernel's time is a run of back-to-back launches between
+             100 MB text, the stitch at the 5.2 MB text's tile and a 32 MiB tile of
+             the 100 MB text, at several base shifts with a carried word; a kernel's
+             time is a run of back-to-back launches between
              one CUDA-event pair, divided by the count; a plain version's is
              the median CUDA-event time of single calls; each kernel's bound
              is the bytes it must move (each input read once, each output
              written once) over the card's 3.35 TB/s, and its library time
              that of one PyTorch call computing the same function, where one
              exists (the full-table expansion: one advanced-indexing call);
-   guard   — every one of the kernels' 37 template instantiations at small
+   guard   — every one of the kernels' 38 template instantiations at small
              odd shapes (tools/sanitize_kernels.py's calls; lanes 1, 7, 33,
-             300): torch.profiler must see all 37 launch; then each call
+             300): torch.profiler must see all 38 launch; then each call
              twice, every input and every tensor the wrappers allocate
              inside guard bands of a poison byte (0xA5, then 0x5A): no guard
              band may change (a write out of bounds), no input may change,
@@ -111,7 +113,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              text, ``weak`` over worlds 1 and 2): exit 0, every row's .et equal
              to the host backend's and its round trip exact, the headline's
              ``cuda_*`` probe figures positive with each bound share at most
-             100 %, all nine kernels launched by the headline's device rows
+             100 %, all ten kernels launched by the headline's device rows
              and by the 5 MB sweep's, no module of JAX or of entreepy_tpu in
              the bench's process; every number beside the card. Each path runs
              with the launch counts set to 0 and must launch each of its
@@ -174,10 +176,10 @@ from entreepy_tpu_torch.bench import bound_ms, kernel_ms, make_corpus  # noqa: E
 from entreepy_tpu_torch.bench.timing import rss_peak  # noqa: E402
 from entreepy_tpu_torch import _build, api, cli, runtime, trace  # noqa: E402
 from entreepy_tpu_torch.ops import (  # noqa: E402
-    cuda_compact, cuda_fsm8, cuda_pack, cuda_symbols, decode8,
+    cuda_compact, cuda_fsm8, cuda_pack, cuda_stitch, cuda_symbols, decode8,
 )
 from entreepy_tpu_torch.ops.bitpack import (  # noqa: E402
-    grouped_counts_plane, plane_cap_g, plane_sub_for,
+    compact_plane_rows, grouped_counts_plane, plane_cap_g, plane_sub_for,
 )
 from entreepy_tpu_torch.format import parse_header  # noqa: E402
 from entreepy_tpu_torch.ops.encode import DEFAULT_BLOCK_BYTES, TILE_BLOCKS  # noqa: E402
@@ -210,13 +212,18 @@ KERNELS = {  # wrapper -> (name, source, TPU kernel it replaces)
                                  "none (host selection)"),
     cuda_symbols.write_symbols: ("write_symbols", "entreepy_tpu_torch/csrc/symbols.cu",
                                  "none (host selection)"),
+    # the single-device encode's stitch; the JAX package stitches on the host
+    cuda_stitch.stitch_tile: ("stitch_tile", "entreepy_tpu_torch/csrc/stitch.cu",
+                              "none (host stitch)"),
 }
 SYMBOLS = (cuda_symbols.symbol_counts, cuda_symbols.write_symbols)
+# every kernel but the single-device encode's stitch: the sharded encode stitches on the host
+MESH_KERNELS = tuple(fn for fn in KERNELS if fn is not cuda_stitch.stitch_tile)
 # Kernels each main path must launch: the device backend's round trip (encode
 # and the one-pass decode) and each two-pass decode route.
 PATH_KERNELS = {
     "device": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks,
-               cuda_compact.compact_rows, *SYMBOLS),
+               cuda_compact.compact_rows, *SYMBOLS, cuda_stitch.stitch_tile),
     "split": (cuda_fsm8.sync_pass, cuda_fsm8.emit_pass, cuda_fsm8.expand_pass_split,
               cuda_compact.compact_rows, cuda_symbols.write_symbols),
     "fused": (cuda_fsm8.sync_pass, cuda_fsm8.emit_pass, cuda_fsm8.expand_pass,
@@ -225,15 +232,16 @@ PATH_KERNELS = {
     # the tiled decode at narrow tiles: packed text and unpacked skewed rows
     "tiles": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_compact.compact_rows, *SYMBOLS),
     # auto routing at 5.2 MB (host: no launch) and 100 MB (the device)
-    "auto": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks, *SYMBOLS),
+    "auto": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks, *SYMBOLS,
+             cuda_stitch.stitch_tile),
     "cli": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks,
-            cuda_compact.compact_rows, *SYMBOLS),
-    # the sharded backend at world 1: every route, so all nine kernels
-    "sharded": tuple(KERNELS),
+            cuda_compact.compact_rows, *SYMBOLS, cuda_stitch.stitch_tile),
+    # the sharded backend at world 1: every route, so every kernel but the stitch
+    "sharded": MESH_KERNELS,
     # the JAX package's largest configurations (tools/large_check.py)
     "large": lg.PATH_KERNELS,
-    # local meshes: 5.2 MB text through every route, so all nine kernels
-    "multicard": tuple(KERNELS),
+    # local meshes: 5.2 MB text through every route, so every kernel but the stitch
+    "multicard": MESH_KERNELS,
 }
 # World 1 of the sharded phase: each corpus through these routes.
 SHARDED_CASES = (("text 5.2 MB", decode8.EXPAND_MODES), ("skewed 5 MB", ("onepass", "fused")))
@@ -418,6 +426,36 @@ def pack_check(data: bytes, blob: bytes):
             bound_ms(blocks, valid, codes, lengths, *pk), None), pk
 
 
+def stitch_check(data: bytes, blob: bytes, shift: int = 0, seed: int = 0):
+    """Stitch kernel vs plain on ``data`` as one encode tile, with the code
+    table of ``blob``: the tile's pack and compaction as the encode runs
+    them, then the stream's bytes exact at base ``shift`` (0-31), with a
+    random carried word in the shift's bits when it is not 0. At shift 0
+    the stream is the host codec's body where ``data`` starts the document.
+    Returns (err, ms, plain_ms, bound_ms, library_ms)."""
+    blocks, valid = ab.encode_blocks(data, DEFAULT_BLOCK_BYTES, DEV)
+    codes, lengths = code_tensors_for(blob, DEV)
+    words, emitted, acc, nbits = cuda_pack.pack_blocks(blocks, valid, codes, lengths)
+    counts_g = grouped_counts_plane(emitted)
+    plane, counts = compact_plane_rows(
+        words, emitted, plane_cap_g(int(counts_g.max()), DEFAULT_BLOCK_BYTES))
+    del words, emitted, blocks
+    bits = int(counts_g.sum()) * 32 + int(nbits.sum())
+    n_words = (shift + bits + 31) >> 5
+    word = int(np.random.default_rng(seed).integers(1, 1 << 32)) & ~(0xFFFFFFFF >> shift)
+    carry = (torch.tensor(list(word.to_bytes(4, "big")), dtype=torch.uint8, device=DEV)
+             if shift else None)
+    args = (plane, counts, acc, nbits, shift, n_words, carry)
+    out = cuda_stitch.stitch_tile(*args)
+    err = max_err(out, cuda_stitch.stitch_tile_plain(*args))
+    if shift == 0:  # the document's first bits, whole bytes: the host codec's body
+        body = np.frombuffer(blob, np.uint8)[parse_header(blob).body_start:][: bits // 8]
+        max_err(out[: body.size], torch.from_numpy(body.copy()).to(DEV))
+    return (err, kernel_ms(lambda: cuda_stitch.stitch_tile(*args)),
+            cuda_ms(lambda: cuda_stitch.stitch_tile_plain(*args), 3),
+            bound_ms(plane, counts, acc, nbits, out), None)
+
+
 def fused_check(xs, tables, n_valid, lanes, packed: bool):
     """Fused kernel vs plain at converged entry states: row0/count bytes and
     exits exact, symbol slots compared where live (j < count). Returns (err,
@@ -581,6 +619,9 @@ def large_kernel_checks(data: bytes, blob: bytes) -> list:
     out.append((cuda_compact.compact_rows, f"that tile's words, sub={sub} cap={cap}",
                 compact_check(pk[0].view(torch.int32).t().contiguous(),
                               pk[1].t().contiguous(), sub, cap)))
+    del pk
+    out.append((cuda_stitch.stitch_tile, "that tile's plane, shift 0",
+                stitch_check(data[: TILE_BLOCKS * DEFAULT_BLOCK_BYTES], blob)))
 
     codes, lengths = code_tensors_for(blob, DEV)
     blocks, valid = ab.encode_blocks(data, DEFAULT_BLOCK_BYTES, DEV)
@@ -668,6 +709,12 @@ def _write_err(a, out, win):
     return max_err(out[lo:], plain)
 
 
+def _stitch_err(a, out, win):
+    """The whole stream: a window's bytes depend on every lane before it."""
+    return max_err(out, cuda_stitch.stitch_tile_plain(
+        a["plane"], a["counts"], a["acc"], a["nbits"], a["shift"], a["n_words"], a["carry"]))
+
+
 # kernel -> (its comparison with the plain version on a window of its lanes
 # or blocks, the argument whose lanes (dim 1) or blocks (dim 0) are windowed)
 SHADOW = {
@@ -680,6 +727,7 @@ SHADOW = {
     cuda_compact.compact_rows: (_compact_err, ("wk", 1)),
     cuda_symbols.symbol_counts: (_counts_err, ("words", 1)),
     cuda_symbols.write_symbols: (_write_err, ("items", 1)),
+    cuda_stitch.stitch_tile: (_stitch_err, ("plane", 1)),
 }
 
 
@@ -1095,12 +1143,13 @@ def card_kernel_checks(text: bytes, blob: bytes, cards, show, merge) -> None:
                 checks += [(fn, res), (cuda_compact.compact_rows, cres)]
             count, write, _ = symbols_check(*onepass_items(xs, tables, n_valid, lanes))
             checks += list(zip(SYMBOLS, (count, write)))
+            checks.append((cuda_stitch.stitch_tile, stitch_check(text, blob, 5, 5)))
             del xs, tables, pk
             torch.cuda.empty_cache()
         for fn, res in checks:
             merge(fn, res)
             show(f"cuda:{c} {KERNELS[fn][0]}, text 5.2 MB shapes", res, "multicard")
-        print(f"[multicard] cuda:{c}: all nine kernels equal their plain versions, "
+        print(f"[multicard] cuda:{c}: all ten kernels equal their plain versions, "
               f"{time.perf_counter() - t0:.1f} s | {card_of(c)}", flush=True)
 
 
@@ -1114,7 +1163,7 @@ def card_of(c: int) -> str:
 def multicard_phase(card: str, data_of: dict, blobs: dict, show, merge,
                     all_card_checks: bool = False) -> dict:
     """[multicard] (see the module docstring): run through ``run_path`` with
-    all nine kernels; returns the path's launch counts. Then each local
+    every kernel but the stitch; returns the path's launch counts. Then each local
     mesh's calls once more with every kernel held against its plain version
     at the rank slices' shapes (at [large]'s configurations inside the
     path's run, outside its counts). ``all_card_checks``: also hold the
@@ -1301,7 +1350,7 @@ def bench_headline(line: dict, card: str) -> None:
 
 def bench_scale(rows: list[dict], label: str, card: str) -> None:
     """Every row's .et equal to the host backend's and round trip exact;
-    the device rows of all routes launch all nine kernels."""
+    the device rows of all routes launch all ten kernels."""
     bad = [(r["corpus"], r["backend"], r["route"]) for r in rows
            if not (r["et_equals_host"] and r["round_trip"])]
     require(not bad, f"[bench] {label}: rows not exact: {bad}")
@@ -1545,7 +1594,8 @@ def main(argv: list[str]) -> int:
     symbols_rows(f"text body ({lanes} lanes, packed, m={tables.m})",
                  symbols_check(*onepass_items(xs, tables, n_valid, lanes)))
 
-    results[cuda_pack.pack_blocks], pk = pack_check(text, et.compress(text, backend="host"))
+    text_blob = et.compress(text, backend="host")
+    results[cuda_pack.pack_blocks], pk = pack_check(text, text_blob)
     n_blocks = pk[1].shape[0]
 
     # the compaction at the encode plane's shapes first (the JSON line's times)
@@ -1555,13 +1605,21 @@ def main(argv: list[str]) -> int:
         pk[0].view(torch.int32).t().contiguous(), pk[1].t().contiguous(), sub, cap)
     print(f"[kernels] pack/compact: {n_blocks} blocks x {DEFAULT_BLOCK_BYTES} B, "
           f"compaction sub={sub} cap={cap}")
+    # the stitch of that plane: the body itself at shift 0 (the JSON line's times), then
+    # base shifts inside a word with a carried word, as a later tile starts
+    del pk
+    results[cuda_stitch.stitch_tile] = stitch_check(text, text_blob)
+    for shift in (1, 13, 31):
+        res = stitch_check(text, text_blob, shift, shift)
+        merge(cuda_stitch.stitch_tile, res)
+        show(f"stitch_tile, text 5.2 MB as one tile, shift {shift} with a carried word", res)
 
     # the emit pass with a 256-state table, and the expansions: text (m = 3)
     # first, for the JSON line; the wider tables after. Each expansion's rows
     # then go through the compaction at the two-pass route's shapes.
     blobs = {kind: et.compress(corpus(kind, 5 * MB), backend="host")
              for kind in ("skewed", "runheavy")}
-    blobs["text"] = et.compress(text, backend="host")
+    blobs["text"] = text_blob
     rh_tables, rh_buf = expand_tables_for(blobs["runheavy"], DEV, True)
     res = emit_check(body_xs(rh_buf)[0], rh_tables.next_state)
     merge(cuda_fsm8.emit_pass, res)
@@ -1601,6 +1659,11 @@ def main(argv: list[str]) -> int:
     res, _ = pack_check(big_text[: TILE_BLOCKS * DEFAULT_BLOCK_BYTES], big_blob)
     merge(cuda_pack.pack_blocks, res)
     show(f"pack_blocks, a {TILE_BLOCKS}-block encode tile of the 100 MB text", res)
+    for shift in (0, 7, 19):
+        res = stitch_check(big_text[: TILE_BLOCKS * DEFAULT_BLOCK_BYTES], big_blob, shift, shift)
+        merge(cuda_stitch.stitch_tile, res)
+        show(f"stitch_tile, that {TILE_BLOCKS}-block tile, shift {shift}"
+             + (" with a carried word" if shift else ", the body's first bytes"), res)
     # a full tile of the streaming decode: the 100 MB text body's first 65,536 lanes
     big_tables, big_buf = decode_tables_for(big_blob, DEV)
     tile = big_buf[: decode8.TILE_LANES * decode8.DEFAULT_CHUNK_BYTES]
@@ -1666,7 +1729,9 @@ def main(argv: list[str]) -> int:
             before = launch_counts()
             blob = e2e_blobs[name] = et.compress(data, backend="device")
             enc_tiles = cuda_pack.pack_blocks.launches - before[cuda_pack.pack_blocks]
+            stitches = cuda_stitch.stitch_tile.launches - before[cuda_stitch.stitch_tile]
             require(blob == host_blob, f"{name}: .et differs from the host backend's")
+            require(stitches == enc_tiles, f"{name}: {stitches} stitches, {enc_tiles} tiles")
             syncs = cuda_fsm8.sync_pass.launches
             require(et.decompress(blob, backend="device") == data, f"{name}: round trip differs")
             dec_tiles = cuda_fsm8.sync_pass.launches - syncs

@@ -16,8 +16,9 @@ named ``cuda_*``:
   extraction (``decode8.onepass_symbols``: the symbols kernel's count and
   write launches for m <= 3, with the read of the total that sizes the
   output), input and output on the card, MB/s of decoded bytes;
-* ``cuda_encode_e2e_ms`` / ``_MBps`` — ``pack_blocks`` plus
-  ``bitpack.compact_payload_plane``, MB/s of packed bytes;
+* ``cuda_encode_e2e_ms`` / ``_MBps`` — one encode tile's device work:
+  ``pack_blocks``, the plane compaction (``bitpack.compact_plane_rows``)
+  and the stitch (``cuda_stitch.stitch_tile``), MB/s of packed bytes;
 * ``cuda_pass_bound_pct``, ``cuda_fused_pass_bound_pct``,
   ``cuda_pack_pass_bound_pct`` — each pass's byte bound
   (``timing.bound_ms``: its inputs read once, its outputs written once) as
@@ -40,7 +41,8 @@ import torch
 
 from ..format import build_code_table, histogram, parse_header
 from ..ops import cuda_fsm8, cuda_pack, decode8
-from ..ops.bitpack import compact_payload_plane, grouped_counts_plane, plane_cap_g
+from ..ops.bitpack import compact_plane_rows, grouped_counts_plane, plane_cap_g
+from ..ops.cuda_stitch import stitch_tile
 from ..ops.encode import DEFAULT_BLOCK_BYTES
 from ..tables import code_tensors, decode_tables_for
 from ..utils.stitch import split_blocks
@@ -101,10 +103,14 @@ def calls(et: bytes, device) -> dict[str, Call]:
     blocks, valid = torch.from_numpy(blocks_np).to(dev), torch.from_numpy(valid_np).to(dev)
     codes, lengths = code_tensors(table, dev)
     packs = cuda_pack.pack_blocks(blocks, valid, codes, lengths)
-    cap = plane_cap_g(int(grouped_counts_plane(packs[1]).max()), DEFAULT_BLOCK_BYTES)
+    counts_g = grouped_counts_plane(packs[1])
+    cap = plane_cap_g(int(counts_g.max()), DEFAULT_BLOCK_BYTES)
+    n_words = (int(counts_g.sum()) * 32 + int(packs[3].sum()) + 31) >> 5
 
     def encode_e2e():
-        return compact_payload_plane(*cuda_pack.pack_blocks(blocks, valid, codes, lengths), cap)
+        words, emitted, acc, nbits = cuda_pack.pack_blocks(blocks, valid, codes, lengths)
+        plane, counts = compact_plane_rows(words, emitted, cap)
+        return stitch_tile(plane, counts, acc, nbits, 0, n_words)
 
     n_out = parse_header(et).body_len
     return {

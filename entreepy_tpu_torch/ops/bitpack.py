@@ -3,11 +3,13 @@
 Counterpart of ``entreepy_tpu/ops/bitpack.py``. The block pack itself is
 ``ops/cuda_pack.pack_blocks``; the compaction runs through
 ``ops/cuda_compact.compact_rows``. The TPU's sort-based twins do not come
-across. The single-device encode fetches the plane
-(:func:`compact_payload_plane`) and slices it on the host; the sharded
-encode packs the plane into one flat stream on the device first
-(:func:`compact_payload_flat`), so only about the compressed size crosses
-to the host and between ranks.
+across. The single-device encode compacts the plane
+(:func:`compact_plane_rows`) and stitches it into the ``.et`` body's bytes
+on the card (``ops/cuda_stitch``); the sharded encode packs the plane into
+one flat stream on the device first (:func:`compact_payload_flat`), so only
+about the compressed size crosses to the host and between ranks, and
+stitches it on the host. :func:`assemble_plane_payload`, the host's slicing
+of a fetched plane, serves the tests' comparison with the JAX package.
 """
 
 from __future__ import annotations
@@ -47,10 +49,25 @@ def plane_cap_g(max_g: int, steps: int) -> int:
     return min(-(-max(max_g, 1) // CAP_G_ROUND) * CAP_G_ROUND, sub)
 
 
+def compact_plane_rows(words: torch.Tensor, emitted: torch.Tensor, cap_g: int):
+    """The compaction kernel over the pack's words, per (PLANE_SUB-slot
+    subgroup, lane), as it writes them: (plane_k int32[G*cap, lanes] —
+    row g*cap + j of lane l is block l's j-th emitted word of subgroup g,
+    counts_k int32[G, lanes]), cap = min(``cap_g``, the subgroup width).
+    ``words`` and ``emitted`` are the pack's transposed [lanes, steps] views,
+    so their k-major layout goes to the kernel without a copy."""
+    steps = words.shape[1]
+    sub = plane_sub_for(steps)
+    wk = words.view(torch.int32).t().contiguous()  # [steps, lanes]
+    ek = emitted.t().contiguous()
+    return compact_rows(wk, ek, sub, min(cap_g, sub))
+
+
 def compact_payload_plane(words: torch.Tensor, emitted: torch.Tensor,
                           acc: torch.Tensor, nbits: torch.Tensor, cap_g: int):
     """Per-(lane, PLANE_SUB-slot subgroup) stable compaction of the emitted
-    words; the host slices the live prefixes (:func:`assemble_plane_payload`).
+    words, lane-major, whose live prefixes :func:`compact_payload_flat`
+    selects on the device (and :func:`assemble_plane_payload` on the host).
 
     words uint32[lanes, steps], emitted bool[lanes, steps] (the pack's
     transposed k-major views), acc uint32[lanes], nbits int32[lanes].
@@ -60,13 +77,10 @@ def compact_payload_plane(words: torch.Tensor, emitted: torch.Tensor,
 
     Returns (plane uint32[lanes, G*cap_g + 1] — the final partial word in the
     last column, counts_g int32[lanes, G], bit_lens int32[lanes])."""
-    lanes, steps = words.shape
-    sub = plane_sub_for(steps)
-    g = steps // sub
-    cg = min(cap_g, sub)
-    wk = words.view(torch.int32).t().contiguous()  # [steps, lanes]
-    ek = emitted.t().contiguous()
-    plane_k, counts_k = compact_rows(wk, ek, sub, cg)
+    lanes, _ = words.shape
+    plane_k, counts_k = compact_plane_rows(words, emitted, cap_g)
+    g = counts_k.shape[0]
+    cg = plane_k.shape[0] // g
     pay = plane_k.reshape(g, cg, lanes).permute(2, 0, 1).reshape(lanes, g * cg)
     counts_g = counts_k.t()
     overflow = counts_g.max() > cg

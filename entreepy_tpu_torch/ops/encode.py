@@ -1,14 +1,18 @@
-"""Single-device compress pipeline: histogram, block pack and plane compaction
-on the device; code construction and bit-granular stitch on the host.
+"""Single-device compress pipeline: histogram, block pack, plane compaction
+and the bit-granular stitch on the device; the code table and the header on
+the host.
 
 Counterpart of ``entreepy_tpu/ops/encode.py``. An input of up to
 ``tile_blocks`` blocks is uploaded once and shared by the histogram and the
 pack; a larger one streams through the device in tiles of that many blocks,
 one upload per tile for the histogram and one for the pack, so the device
 working set is bounded by the tile. Blocks are independent, so tiling is
-exact. Block size and tile width change only device efficiency — the
-stitched ``.et`` output is byte-identical for every value (and to the host
-codec).
+exact. Each tile's blocks are stitched on the device (``ops/cuda_stitch``)
+into the body's big-endian bytes at the tile's bit offset, and only those
+bytes come back, into one host buffer that becomes the ``.et``; a tile that
+starts inside a word takes the previous tile's last word along on the device
+and ORs it in. Block size and tile width change only device efficiency — the
+``.et`` output is byte-identical for every value (and to the host codec).
 """
 
 from __future__ import annotations
@@ -18,17 +22,11 @@ import torch
 
 from ..format.etformat import serialize_header
 from ..format.huffman import CodeTable, build_code_table
-from ..tables import code_tensors, fetch, to_device
-from ..trace import phase
-from ..utils.stitch import stitch_flat_payload, words_to_bytes
-from .bitpack import (
-    assemble_plane_payload,
-    compact_payload_plane,
-    grouped_counts_plane,
-    histogram_device,
-    plane_cap_g,
-)
+from ..tables import code_tensors, fetch, fetch_into, to_device
+from ..trace import count, phase
+from .bitpack import compact_plane_rows, grouped_counts_plane, histogram_device, plane_cap_g
 from .cuda_pack import pack_blocks
+from .cuda_stitch import stitch_tile
 
 DEFAULT_BLOCK_BYTES = 1024
 # Blocks per tile of the streaming encode: 32 MB of input at the default
@@ -42,12 +40,14 @@ def histogram_on_device(data: torch.Tensor) -> np.ndarray:
 
 
 def encode_blocks_device(data: torch.Tensor, table: CodeTable,
-                         block_bytes: int = DEFAULT_BLOCK_BYTES):
-    """Pack ``data`` (uint8 tensor) block-parallel on its device.
+                         block_bytes: int = DEFAULT_BLOCK_BYTES, shift: int = 0,
+                         carry: torch.Tensor | None = None):
+    """Pack ``data`` (uint8 tensor) block-parallel on its device and stitch
+    the blocks into one bitstream that starts ``shift`` (0-31) bits into its
+    first word, ORed with ``carry`` (uint8[4], the word before, or None).
 
-    Returns (flat uint32 numpy — every block's compacted words back to back,
-    nwords int64[n_blocks] — words per block incl. the final partial one,
-    bit_lens int64[n_blocks]), for ``stitch_flat_payload``."""
+    Returns (the stream as big-endian bytes, uint8[4 * words] on the
+    device, its bit count without the shift)."""
     n = data.numel()
     dev = data.device
     n_blocks = max(1, -(-n // block_bytes))
@@ -61,18 +61,19 @@ def encode_blocks_device(data: torch.Tensor, table: CodeTable,
             blocks.reshape(n_blocks, block_bytes), to_device(valid, dev),
             codes, lengths,
         )
+        del blocks
     with phase("sizing_fetch"):
         counts_g = grouped_counts_plane(emitted)
-        cap_g = plane_cap_g(int(counts_g.max()), block_bytes)
+        bits = counts_g.sum(dtype=torch.int64) * 32 + nbits.sum(dtype=torch.int64)
+        max_g, bits = torch.stack([counts_g.max().long(), bits]).tolist()
+        cap_g = plane_cap_g(max_g, block_bytes)
     with phase("device_compact"):
-        plane, counts_gd, bit_lens = compact_payload_plane(
-            words, emitted, acc, nbits, cap_g
-        )
-    with phase("device_fetch"):
-        plane_np, counts_np, bit_lens_np = fetch(plane.view(torch.int32), counts_gd, bit_lens)
-    with phase("host_assemble"):
-        flat, nwords = assemble_plane_payload(plane_np.view(np.uint32), counts_np)
-    return flat, nwords, bit_lens_np.astype(np.int64)
+        plane, counts = compact_plane_rows(words, emitted, cap_g)
+        del words, emitted  # the stitch's output takes their place, not more
+    with phase("device_stitch"):
+        stream = stitch_tile(plane, counts, acc, nbits, shift, (shift + bits + 31) >> 5, carry)
+        count("device_stitches", 1)
+    return stream, bits
 
 
 def _uploads(arr: np.ndarray, tile_bytes: int, device):
@@ -94,14 +95,24 @@ def histogram_tiles(tiles) -> np.ndarray:
     return total
 
 
-def encode_tiles(tiles, table: CodeTable, block_bytes: int = DEFAULT_BLOCK_BYTES):
-    """:func:`encode_blocks_device` of each device tile, concatenated: each
-    tile's flat payload trimmed to its ``nwords.sum()`` words, so the
-    stitch's cumsum(nwords) offsets stay aligned across tiles."""
-    flats, nwords, bit_lens = zip(*(encode_blocks_device(t, table, block_bytes) for t in tiles))
-    with phase("join_tiles"):
-        return (np.concatenate([f[: int(nw.sum())] for f, nw in zip(flats, nwords)]),
-                np.concatenate(nwords), np.concatenate(bit_lens))
+def encode_tiles(tiles, table: CodeTable, body: torch.Tensor,
+                 block_bytes: int = DEFAULT_BLOCK_BYTES) -> int:
+    """:func:`encode_blocks_device` of each device tile, its bytes fetched
+    into ``body`` (uint8 on the host) at its bit offset; returns the bits
+    written. Where a tile ends inside a byte, the next tile's first byte is
+    fetched again, with both tiles' bits: the previous tile's last word goes
+    along on the device as the next one's ``carry``."""
+    at, carry = 0, None
+    for tile in tiles:
+        shift = at & 31
+        stream, bits = encode_blocks_device(tile, table, block_bytes, shift, carry)
+        end = at + bits
+        with phase("device_fetch"):
+            fetch_into(body[at >> 3:(end + 7) >> 3], stream[shift >> 3:(shift + bits + 7) >> 3])
+        carry = stream[-4:].clone() if end & 31 else None
+        del stream  # before the next tile's pack
+        at = end
+    return at
 
 
 def compress_device(data: bytes, *, device, strict: bool = True,
@@ -117,9 +128,13 @@ def compress_device(data: bytes, *, device, strict: bool = True,
     counts = histogram_tiles(one or _uploads(arr, tile_bytes, device))
     with phase("code_table"):
         table = build_code_table(counts, strict=strict)
-    flat, nwords, bit_lens = encode_tiles(one or _uploads(arr, tile_bytes, device),
-                                          table, block_bytes)
-    with phase("stitch"):
-        words, total_bits = stitch_flat_payload(flat, nwords, bit_lens)
+    total_bits = table.encoded_body_bits(counts)
+    with phase("join_tiles"):
+        # the one buffer every tile's bytes land in; pinned on a card
+        body = torch.empty((total_bits + 7) // 8, dtype=torch.uint8,
+                           pin_memory=torch.device(device).type == "cuda")
+    got = encode_tiles(one or _uploads(arr, tile_bytes, device), table, body, block_bytes)
+    if got != total_bits:
+        raise ValueError(f"the device packed {got} bits, the histogram says {total_bits}")
     with phase("serialize"):
-        return serialize_header(table, arr.size) + words_to_bytes(words, total_bits)
+        return b"".join((serialize_header(table, arr.size), body.numpy()))

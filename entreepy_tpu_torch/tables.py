@@ -4,8 +4,8 @@ The port builds every table in numpy (``format``, its copy of the JAX
 package's ``entreepy_tpu.format``); this module only carries them onto a
 device, as plain integers, through :func:`to_device`, which every upload of
 the pipelines goes through, as every fetch but the decode plane's
-asynchronous one goes through :func:`fetch`: both count the bytes they move
-(``trace.count``). Two JAX forms do
+asynchronous one goes through :func:`fetch`, or :func:`fetch_into` where the
+host buffer is given: they count the bytes they move (``trace.count``). Two JAX forms do
 not come across: the bf16 cast (an MXU one-hot contraction is exact only for
 values <= 255 in bf16) and the int8 value-128 form (the v5e int8 MXU rate).
 Likewise the 5-column limb table ``code_table_cols`` existed only to keep bf16
@@ -67,6 +67,14 @@ def fetch(*tensors: torch.Tensor) -> list[np.ndarray]:
     out = [t.cpu().numpy() for t in tensors]
     count("d2h_bytes", sum(a.nbytes for a in out))
     return out
+
+
+def fetch_into(host: torch.Tensor, t: torch.Tensor) -> None:
+    """Copy device tensor ``t`` into ``host``, a host tensor of its size
+    (the encode's slice of its output buffer), its bytes counted as
+    ``d2h_bytes``."""
+    host.copy_(t)
+    count("d2h_bytes", t.numel() * t.element_size())
 
 
 def next_state_tensor(fsm: ByteFsm, device) -> torch.Tensor:

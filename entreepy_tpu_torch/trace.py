@@ -32,7 +32,8 @@ A record also counts (:func:`count`, ``.counts`` of the dict
 
 * ``h2d_bytes``: host arrays moved to the device (bodies, documents, tables);
 * ``d2h_bytes``: device tensors moved back (a decode's symbols and their
-  per-lane metadata, states, payloads, histograms). Scalar readbacks of a
+  per-lane metadata, states, payloads, the encode's stitched body bytes,
+  histograms). Scalar readbacks of a
   few bytes (``int()``, ``bool()``: a sizing maximum or total, the fixed
   point's test) are left out, and so are a process group's staging copies
   inside its collectives;
@@ -41,6 +42,9 @@ A record also counts (:func:`count`, ``.counts`` of the dict
   and the symbols the symbols kernel wrote and the host fetched;
 * ``fsm_builds``: byte automata built, each a miss of ``build_byte_fsm``'s
   cache (the stage ``fsm_build``);
+* ``device_stitches``: the single-device encode's tiles stitched on the
+  device (the stage ``device_stitch``, one launch of ``ops/cuda_stitch``'s
+  kernel a tile);
 * ``mesh_exchanges`` / ``p2p_bytes``: a sharded rank's exchanges with the
   other ranks, and the bytes of their tensors it took in them (counted only
   where something is exchanged; ``parallel.dist``).

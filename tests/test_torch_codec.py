@@ -201,9 +201,9 @@ def test_record_stages_times_every_stage(midsummer):
         assert entreepy_tpu_torch.compress(midsummer, backend="device", device="cpu") == et
     with trace.record_stages() as dec:
         assert entreepy_tpu_torch.decompress(et, backend="device", device="cpu") == midsummer
-    assert list(enc) == ["input_upload", "device_histogram", "code_table", "device_pack",
-                         "sizing_fetch", "device_compact", "device_fetch", "host_assemble",
-                         "join_tiles", "stitch", "serialize"]
+    assert list(enc) == ["input_upload", "device_histogram", "code_table", "join_tiles",
+                         "device_pack", "sizing_fetch", "device_compact", "device_stitch",
+                         "device_fetch", "serialize"]
     assert list(dec) == ["parse_header", "fsm_build", "decode_tables", "body_upload",
                          "device_fsm8_decode", "device_expand", "device_sym_fetch",
                          "host_extract", "host_validate", "host_check_bits", "join_output"]

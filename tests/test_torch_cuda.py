@@ -23,7 +23,10 @@ torch = pytest.importorskip("torch")
 import entreepy_tpu_torch as et  # noqa: E402
 from entreepy_tpu_torch.bench import make_corpus  # noqa: E402
 from entreepy_tpu_torch.ops import (  # noqa: E402
-    cuda_compact, cuda_fsm8, cuda_pack, cuda_symbols, decode8,
+    cuda_compact, cuda_fsm8, cuda_pack, cuda_stitch, cuda_symbols, decode8,
+)
+from entreepy_tpu_torch.ops.bitpack import (  # noqa: E402
+    compact_plane_rows, grouped_counts_plane, plane_cap_g,
 )
 from entreepy_tpu_torch.tables import (  # noqa: E402
     body_for,
@@ -780,6 +783,95 @@ def test_tiled_encode(dev):
     out = encode.compress_device(data, device=dev, block_bytes=256, tile_blocks=4)
     assert out == et.compress(data, backend="host")
     assert cuda_pack.pack_blocks.launches - before == -(-len(data) // 1024)
+
+
+# --- the encode's stitch (csrc/stitch.cu) ---
+
+MB = 1_000_000
+# torch.cuda.max_memory_allocated of a 10^8 B text compress while the host
+# stitched the tiles (NVIDIA H100 80GB HBM3): the stitch on the card must not
+# raise it
+HOST_STITCH_ENCODE_PEAK = 369_886_720
+
+
+@pytest.fixture(scope="module")
+def text_100mb():
+    data = make_corpus("text", 100 * MB)
+    return data, et.compress(data, backend="host")
+
+
+def _stitch_equal(data: bytes, blob: bytes, shift: int, dev):
+    """``data`` packed and compacted as one encode tile under ``blob``'s
+    code table, then the stitch kernel against its plain version at base
+    ``shift`` with a carried word in the shift's bits; at shift 0 also the
+    host codec's body bytes. Returns the tile's bits."""
+    from entreepy_tpu_torch.format import parse_header
+    from entreepy_tpu_torch.ops.encode import DEFAULT_BLOCK_BYTES
+
+    n_blocks = -(-len(data) // DEFAULT_BLOCK_BYTES)
+    flat = torch.zeros(n_blocks * DEFAULT_BLOCK_BYTES, dtype=torch.uint8, device=dev)
+    flat[: len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    valid = torch.full((n_blocks,), DEFAULT_BLOCK_BYTES, dtype=torch.int32, device=dev)
+    valid[-1] = len(data) - (n_blocks - 1) * DEFAULT_BLOCK_BYTES
+    words, emitted, acc, nbits = cuda_pack.pack_blocks(
+        flat.reshape(n_blocks, DEFAULT_BLOCK_BYTES), valid, *code_tensors_for(blob, dev))
+    counts_g = grouped_counts_plane(emitted)
+    plane, counts = compact_plane_rows(words, emitted,
+                                       plane_cap_g(int(counts_g.max()), DEFAULT_BLOCK_BYTES))
+    bits = int(counts_g.sum()) * 32 + int(nbits.sum())
+    word = (0x9E3779B9 * (shift + 1)) & ~(0xFFFFFFFF >> shift) & 0xFFFFFFFF if shift else 0
+    carry = torch.tensor(list(word.to_bytes(4, "big")), dtype=torch.uint8, device=dev)
+    args = (plane, counts, acc, nbits, shift, (shift + bits + 31) >> 5, carry if shift else None)
+    before = cuda_stitch.stitch_tile.launches
+    got = cuda_stitch.stitch_tile(*args)
+    assert cuda_stitch.stitch_tile.launches == before + 1
+    assert torch.equal(got, cuda_stitch.stitch_tile_plain(*args))
+    if shift == 0:
+        body = np.frombuffer(blob, np.uint8)[parse_header(blob).body_start:][: bits // 8]
+        assert torch.equal(got[: body.size].cpu(), torch.from_numpy(body.copy()))
+    return bits
+
+
+@pytest.mark.parametrize("shift", [0, 1, 8, 13, 31])
+def test_stitch_tile_kernel_5mb(shift, dev):
+    """The 5.2 MB text as one tile (5,079 blocks)."""
+    data = make_corpus("text", 5_200_000)
+    _stitch_equal(data, et.compress(data, backend="host"), shift, dev)
+
+
+@pytest.mark.parametrize("shift", [0, 3, 24, 31])
+def test_stitch_tile_kernel_32mib_tile(shift, text_100mb, dev):
+    """The first 32 MiB encode tile of the 10^8 B text (32,768 blocks)."""
+    from entreepy_tpu_torch.ops.encode import DEFAULT_BLOCK_BYTES, TILE_BLOCKS
+
+    data, blob = text_100mb
+    _stitch_equal(data[: TILE_BLOCKS * DEFAULT_BLOCK_BYTES], blob, shift, dev)
+
+
+def test_stitch_wrapper_rejects_bad_operands(dev):
+    plane = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    counts = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    acc = torch.zeros(8, dtype=torch.uint32, device=dev)
+    nbits = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # not contiguous
+        cuda_stitch.stitch_tile(torch.zeros((8, 4), dtype=torch.int32, device=dev).t(), counts,
+                                acc, nbits, 0, 1)
+    with pytest.raises(ValueError):  # counts of another dtype
+        cuda_stitch.stitch_tile(plane, counts.long(), acc, nbits, 0, 1)
+    with pytest.raises(ValueError):  # a shift past the word
+        cuda_stitch.stitch_tile(plane, counts, acc, nbits, 32, 1)
+
+
+def test_device_compress_100mb_stitches_on_the_card(text_100mb, dev):
+    """A 10^8 B device compress: the host codec's .et, one stitch launch per
+    tile (3), and a peak no higher than the host stitch's."""
+    data, blob = text_100mb
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = cuda_stitch.stitch_tile.launches
+    assert et.compress(data, backend="device") == blob
+    assert cuda_stitch.stitch_tile.launches - before == 3
+    assert torch.cuda.max_memory_allocated(dev) <= HOST_STITCH_ENCODE_PEAK
 
 
 # --- the fuzz twin (tests/test_torch_fuzz.py) on the card ---

@@ -156,31 +156,34 @@ def test_decode_fetches_symbols_not_the_plane(kind, expand):
 def test_encode_link_bytes(tile_blocks, monkeypatch, midsummer):
     """Compress in one tile and in two: past one tile the input goes up
     twice (histogram, then pack); each tile also uploads its blocks' valid
-    lengths and the code tables, and fetches its histogram and its
-    compacted plane, subgroup counts and bit lengths."""
-    planes, real = [], encode.compact_payload_plane
+    lengths and the code tables, and fetches its histogram and its stitched
+    bytes: the body once, and once more the byte a tile shares with the one
+    before it where the tile starts inside a byte."""
+    bits, real = [], encode.encode_blocks_device
 
     def spy(*args):
         out = real(*args)
-        planes.append(sum(t.numel() * t.element_size() for t in out))
+        bits.append(out[1])
         return out
 
-    monkeypatch.setattr(encode, "compact_payload_plane", spy)
+    monkeypatch.setattr(encode, "encode_blocks_device", spy)
     block = encode.DEFAULT_BLOCK_BYTES
     n_blocks = -(-len(midsummer) // block)
     step = tile_blocks or n_blocks
     tiles = [min(step, n_blocks - b0) for b0 in range(0, n_blocks, step)]
     assert len(tiles) == (2 if tile_blocks else 1)
+    et = compress_host(midsummer)
     with trace.record_stages() as rec:
-        assert encode.compress_device(midsummer, device="cpu",
-                                      tile_blocks=tile_blocks) == compress_host(midsummer)
-    codes, lengths = code_tensors(parse_header(compress_host(midsummer)).table, "cpu")
+        assert encode.compress_device(midsummer, device="cpu", tile_blocks=tile_blocks) == et
+    codes, lengths = code_tensors(parse_header(et).table, "cpu")
     crossings = 2 if len(tiles) > 1 else 1
     per_tile = codes.numel() * 4 + lengths.numel()
     assert rec.counts["h2d_bytes"] == (len(midsummer) * crossings
                                        + sum(nb * 4 + per_tile for nb in tiles))
-    assert rec.counts["d2h_bytes"] == 256 * 8 * len(tiles) + sum(planes)
-    assert len(planes) == len(tiles)
+    shared = sum(int(at) % 8 != 0 for at in np.cumsum(bits)[:-1])
+    body = len(et) - parse_header(et).body_start
+    assert rec.counts["d2h_bytes"] == 256 * 8 * len(tiles) + body + shared
+    assert len(bits) == rec.counts["device_stitches"] == len(tiles)
 
 
 def test_plane_slots_and_symbols(monkeypatch, et, midsummer):

@@ -1,7 +1,7 @@
 """Every CUDA kernel instantiation of entreepy_tpu_torch, launched at small
 odd shapes and checked inside poisoned guard bands.
 
-:func:`plan` lays out calls that launch each of the 37 template
+:func:`plan` lays out calls that launch each of the 38 template
 instantiations of ``csrc/`` at least once, through the kernel wrappers of
 ``ops/cuda_*.py``, at shapes that reach every guard (lanes 1, 7, 33 and 300;
 partial last chunks, blocks and rounds; k = 1, 16, 17, 33, 48 and 512); the
@@ -58,9 +58,11 @@ INSTANTIATIONS = (
     *(f"expand_kernel<{m + 1}, {4 if m < 4 else 8 if m < 8 else 16}, false>"
       for m in range(1, 9)),
     "symbols_kernel<false, false>", "symbols_kernel<false, true>", "symbols_kernel<true, true>",
+    "stitch_kernel",
 )
 PORT_KERNELS = ("walk_kernel", "fused_kernel", "pack_kernel", "compact_tile_kernel",
-                "compact_serial_kernel", "expand_split_kernel", "expand_kernel", "symbols_kernel")
+                "compact_serial_kernel", "expand_split_kernel", "expand_kernel", "symbols_kernel",
+                "stitch_kernel")
 
 
 # ---- the dispatch rules of csrc/, one per C entry point ----
@@ -197,7 +199,8 @@ def plan(device) -> list[Call]:
     import torch
 
     import entreepy_tpu_torch as et
-    from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, cuda_symbols
+    from entreepy_tpu_torch.ops import (cuda_compact, cuda_fsm8, cuda_pack, cuda_stitch,
+                                        cuda_symbols)
     from entreepy_tpu_torch.tables import code_tensors_for, decode_tables_for, expand_tables_for
 
     device = torch.device(device)
@@ -323,6 +326,22 @@ def plan(device) -> list[Call]:
         add(f"write_symbols plane lanes={lanes} groups={groups} cap={cap}",
             symbols_instantiation(True, True), cuda_symbols.write_symbols,
             u8(groups * cap, lanes), dev(ends), int(ends[-1]), 1, dev(mini), cap)
+
+    # stitch_kernel (stitch.cu et_stitch_tile, one instantiation): planes of 1, 7, 33 and 300
+    # lanes, partial chunks of 64 rows, full and empty subgroups, partial words with bits past
+    # nbits set, base shifts inside a word with and without a carried word
+    for lanes, groups, cap, shift, carried in ((1, 1, 1, 0, False), (7, 3, 48, 13, True),
+                                               (33, 2, 16, 31, True), (300, 4, 100, 1, False)):
+        counts = rng.integers(0, cap + 1, (groups, lanes)).astype(np.int32)
+        counts[:, 0] = cap
+        counts[0, -1] = 0
+        nbits = rng.integers(0, 32, lanes).astype(np.int32)
+        n_words = (shift + int(counts.sum()) * 32 + int(nbits.sum()) + 31) >> 5
+        add(f"stitch_tile lanes={lanes} groups={groups} cap={cap} shift={shift} "
+            f"carry={carried}", "stitch_kernel", cuda_stitch.stitch_tile,
+            below(2**31 - 1, groups * cap, lanes, dtype=np.int32), dev(counts),
+            dev(rng.integers(0, 2**32, lanes, dtype=np.uint32)), dev(nbits), shift, n_words,
+            u8(4) if carried else None)
     return calls
 
 
@@ -503,7 +522,7 @@ def profiled_instantiations(calls: list[Call], device) -> set[str]:
 
 def run_calls(device) -> int:
     """Every call of :func:`plan`, then :func:`api_round_trips`; prints the
-    call that reaches each instantiation and ``reached N/37``."""
+    call that reaches each instantiation and ``reached N/38``."""
     import torch
 
     missing = set(INSTANTIATIONS) ^ source_instantiations()
