@@ -20,16 +20,17 @@ route (``expand``; the JAX package's ``ENTREEPY_EXPAND`` and
   per body byte, and the host runtime expands them
   (:func:`decode_body_device`).
 
-The device routes end in the symbols kernel (``ops/cuda_symbols``), which
-writes each lane's symbols at the lane's offset on the device, so the host
-fetches only the symbols in stream order and the per-lane metadata, lands
-them in the output (:func:`land_symbols`) and applies the serial-exact
-accept/reject. The one-pass route streams through
-:func:`decode_body_device_tiled`: tiles of up to ``TILE_LANES`` lanes
-decoded in stream order, each tile's lane 0 entering at the previous tile's
-last exit, tile-local positions, and each tile's fetch overlapped with the
-next tile's upload and passes. The two-pass device routes run untiled up to
-the int32 position bound.
+One card and each rank of a mesh (``parallel.dist``) run one route step:
+:func:`route_tables`, :func:`route_passes` (upload and fixed point),
+:func:`route_symbols`. The device routes end in the symbols kernel
+(``ops/cuda_symbols``), which writes each lane's symbols at the lane's
+offset on the device, so the host fetches only the symbols in stream order
+and the per-lane metadata, lands them in the output (:func:`land_symbols`)
+and runs the host tail (:func:`host_validate`, :func:`host_check_bits`).
+:func:`decode_body_device_tiled` runs the step in tiles of up to
+``TILE_LANES`` lanes on the one-pass route, each tile's fetch overlapped
+with the next tile's upload and passes, and as one tile up to the int32
+position bound on the two-pass device routes.
 """
 
 from __future__ import annotations
@@ -325,20 +326,31 @@ def land_symbols(pending, out: np.ndarray, at: int, metas: list) -> int:
     return at + got.size
 
 
-def assemble_symbols(out, filled, metas, n_symbols, table, n_body) -> np.ndarray:
-    """Serial-exact accept/reject over the concatenated per-lane metadata of
-    every tile (``metas``, one (lane_tot, w_inv) per tile; a singleton on
-    the untiled routes), then ``out``, whose first ``filled`` symbols the
-    tiles landed, and the exact-bit invariant."""
+def take_symbols(pending):
+    """A mesh rank's fetch (:func:`fetch_symbols`), its symbols taken whole
+    (``host_extract``; the caller joins the ranks') -> (symbols, lane_tot, w_inv)."""
+    syms, lane_tot, w_inv = fetch_symbols(pending)
+    with phase("host_extract"):
+        return extract_plane_symbols(syms, syms.size), lane_tot, w_inv
+
+
+def host_validate(metas, n_symbols: int) -> None:
+    """Serial-exact accept/reject over the concatenated per-lane metadata
+    (``metas``: one (lane_tot, w_inv) per tile or rank, in stream order;
+    ``w_inv`` NO_INVALID or -1 where a lane has no invalid transition)."""
     with phase("host_validate"):
         lane_tot = np.concatenate([np.asarray(c, dtype=np.int64) for c, _ in metas])
         w_inv = np.concatenate([np.asarray(w, dtype=np.int64) for _, w in metas])
         w_inv[w_inv >= NO_INVALID] = -1
         validate_chunk_meta(lane_tot, w_inv, n_symbols)
+
+
+def host_check_bits(out: np.ndarray, filled: int, n_symbols: int, table,
+                    n_body: int) -> np.ndarray:
+    """``out``, whose first ``filled`` symbols were landed, held to
+    ``n_symbols`` and to the exact-bit invariant -> ``out``."""
     if filled < n_symbols:
-        raise ValueError(
-            f"bitstream ended early: decoded {filled} of {n_symbols} symbols"
-        )
+        raise ValueError(f"bitstream ended early: decoded {filled} of {n_symbols} symbols")
     with phase("host_check_bits"):
         _check_stream_bits(out, table.lengths, n_body)
     return out
@@ -378,50 +390,54 @@ def _upload_body(buf: np.ndarray, lanes: int, chunk_bytes: int, device) -> torch
         return bytes_to_cols(padded, lanes, chunk_bytes, device)
 
 
-def decode_body_device_full(
-    body: bytes | np.ndarray,
-    table: CodeTable,
-    n_symbols: int,
-    *,
-    device,
-    chunk_bytes: int = DEFAULT_CHUNK_BYTES,
-    expand: str = "onepass",
-) -> np.ndarray:
-    """Decode a packed body on ``device`` -> uint8[n_symbols] (host array):
-    FSM passes, symbol expansion, compaction and extraction on the device;
-    the host fetches the symbols and the per-lane metadata. ``expand`` picks
-    the one-pass route, which streams in tiles
-    (:func:`decode_body_device_tiled`, one tile up to ``TILE_LANES``
-    lanes), or a two-pass one, untiled, with the split or the full expand
-    table ("onepass", "split" or "fused")."""
-    if expand not in ("onepass", "split", "fused"):
-        raise ValueError(f"decode_body_device_full: unknown expand route {expand!r}")
-    if expand == "onepass":
-        return decode_body_device_tiled(body, table, n_symbols, device=device,
-                                        chunk_bytes=chunk_bytes)
-    if n_symbols == 0:
-        return np.zeros(0, dtype=np.uint8)
-    buf = _body_buf(body)
-    lanes = max(1, -(-buf.size // chunk_bytes))
-    if lanes * chunk_bytes > MAX_UNTILED_BYTES:
-        raise NotImplementedError(
-            f"{buf.size} B body exceeds the untiled device decode's int32 "
-            f"positions; expand={expand!r} has no tiled route (only 'onepass' "
-            "streams in tiles)"
-        )
+def route_tables(table: CodeTable, device, expand: str, fsm: ByteFsm | None = None):
+    """The ``expand`` route's tables on ``device`` (stage ``decode_tables``)
+    -> (fsm, tables): the one-pass ``DecodeTables``, the two-pass
+    ``ExpandTables`` with the split or the full expand table, or on the
+    host route the state pass's ``next_state`` alone. ``fsm`` is built from
+    ``table`` inside the stage unless given (a mesh's ranks share the
+    caller's)."""
     with phase("decode_tables"):
-        tables = expand_tables(build_byte_fsm(table), device, split=expand == "split")
-    cols = _upload_body(buf, lanes, chunk_bytes, device)
+        fsm = build_byte_fsm(table) if fsm is None else fsm
+        if expand == "onepass":
+            return fsm, decode_tables(fsm, device)
+        if expand == "host":
+            return fsm, next_state_tensor(fsm, device)
+        return fsm, expand_tables(fsm, device, split=expand == "split")
+
+
+def route_passes(seg: np.ndarray, lanes: int, chunk_bytes: int, device, tables, expand: str,
+                 n_symbols: int, *, n_real_lanes: int | None = None,
+                 entry0: int | torch.Tensor = 0, gather=_one_rank):
+    """``seg`` of the body uploaded as ``lanes`` chunks (:func:`_upload_body`,
+    let go on return), then the fixed point (``device_fsm8_decode``) of the
+    fused passes on "onepass", else of the emit passes -> (rows for
+    :func:`route_symbols`: the vals, or (xs, states); exits on "onepass",
+    else None; unconverged). ``n_real_lanes`` (default ``lanes``),
+    ``entry0`` (one-pass only) and ``gather`` as in :func:`_fixed_point`."""
+    n_real_lanes = lanes if n_real_lanes is None else n_real_lanes
+    cols = _upload_body(seg, lanes, chunk_bytes, device)
     with phase("device_fsm8_decode", n_symbols):
+        if expand == "onepass":
+            return fsm8_decode_fused(cols, tables.next_state, tables.fused, n_real_lanes,
+                                     tables.m, tables.mt, tables.s, packed=tables.m <= 3,
+                                     n_valid=seg.size, entry0=entry0, gather=gather)
         xs = cols.t().contiguous()  # [K, lanes]
-        states, unconverged = fsm8_decode(xs, tables.next_state, lanes)
-    if unconverged:
-        return decode_host(buf, table, n_symbols)
+        next_state = tables if expand == "host" else tables.next_state
+        states, unconverged = fsm8_decode(xs, next_state, n_real_lanes, gather)
+        return (xs, states), None, unconverged
+
+
+def route_symbols(rows, tables, expand: str, n_valid: int, n_symbols: int):
+    """``rows`` of :func:`route_passes` -> (symbols, lane_tot, w_inv) on
+    their device (``device_expand``): :func:`onepass_symbols`, or the
+    two-pass expansion into :func:`plane_symbols`; the tensors that
+    :func:`fetch_symbols` and :func:`_fetch_async` take. Real bytes are
+    those at lane-linear positions < ``n_valid``."""
     with phase("device_expand", n_symbols):
-        symbols = plane_symbols(*run_expand(xs, states, tables, buf.size), tables.m)
-    out, metas = np.empty(n_symbols, dtype=np.uint8), []
-    filled = land_symbols(symbols, out, 0, metas)
-    return assemble_symbols(out, filled, metas, n_symbols, table, buf.size)
+        if expand == "onepass":
+            return onepass_symbols(rows, tables.m, tables.m <= 3, n_valid)
+        return plane_symbols(*run_expand(*rows, tables, n_valid), tables.m)
 
 
 @functools.cache
@@ -466,64 +482,55 @@ def _fetch_async(tensors):
     return wait
 
 
-def decode_body_device_tiled(
-    body: bytes | np.ndarray,
-    table: CodeTable,
-    n_symbols: int,
-    *,
-    device,
-    chunk_bytes: int = DEFAULT_CHUNK_BYTES,
-    tile_lanes: int | None = None,
-) -> np.ndarray:
-    """The one-pass decode -> uint8[n_symbols] (host array): the body's
+def decode_body_device_tiled(body: bytes | np.ndarray, table: CodeTable, n_symbols: int, *,
+                             device, chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                             expand: str = "onepass", tile_lanes: int | None = None) -> np.ndarray:
+    """The device decode by the ``expand`` route ("onepass", "split" or
+    "fused") -> uint8[n_symbols] (host array). On "onepass" the body's
     lanes run in tiles of ``tile_lanes`` (default TILE_LANES; a test hook,
-    not an option), in stream order, so each tile's lane 0 enters EXACTLY
-    at the previous tile's last exit (a device tensor: the chaining reads
-    nothing back) and self-sync runs within a tile. Per tile: upload, fused
-    passes to the fixed point, the symbols in stream order on the device
-    (:func:`onepass_symbols`), then the fetch of the symbols and the
-    per-lane metadata, which overlaps the next tile's upload and passes
-    (depth-2 pipeline) and lands in the output (:func:`land_symbols`)
-    before the next tile's extraction: the device and the pinned host
-    memory hold one tile's symbols at a time, so neither grows with the
-    body. Byte
-    positions are tile-local, so no int32 wraps at any body size. The
-    accept/reject and the exact-bit check run once over the concatenated
-    per-tile metadata. A tile whose self-sync does not converge sends the
-    whole body to the exact serial decoder (:func:`decode_host`)."""
+    not an option), in stream order: each tile's lane 0 enters EXACTLY at
+    the previous tile's last exit (a device tensor: the chaining reads
+    nothing back), self-sync runs within a tile, and byte positions are
+    tile-local, so no int32 wraps at any body size. The two-pass routes run
+    as one tile of every lane, up to MAX_UNTILED_BYTES. Per tile: the route
+    step, then the fetch of the symbols and the per-lane metadata, which on
+    "onepass" overlaps the next tile's upload and passes (depth-2 pipeline)
+    and lands in the output (:func:`land_symbols`) before the next tile's
+    extraction, so the device and the pinned host memory hold one tile's
+    symbols at a time. The host tail runs once over every tile's metadata.
+    A tile whose self-sync does not converge sends the whole body to the
+    exact serial decoder (:func:`decode_host`)."""
     if n_symbols == 0:
         return np.zeros(0, dtype=np.uint8)
     buf = _body_buf(body)
     lanes = max(1, -(-buf.size // chunk_bytes))
-    t_lanes = max(1, tile_lanes or TILE_LANES)
-    with phase("decode_tables"):
-        tables = decode_tables(build_byte_fsm(table), device)
-    m = tables.m
-    packed = m <= 3
+    tiled = expand == "onepass"
+    if not tiled and lanes * chunk_bytes > MAX_UNTILED_BYTES:
+        raise NotImplementedError(f"{buf.size} B body exceeds the untiled device decode's int32 "
+                                  f"positions; expand={expand!r} has no tiled route (only "
+                                  "'onepass' streams in tiles)")
+    t_lanes = max(1, tile_lanes or TILE_LANES) if tiled else lanes
+    _, tables = route_tables(table, device, expand)
     out, filled, metas, pending, entry0 = np.empty(n_symbols, dtype=np.uint8), 0, [], None, 0
     for l0 in range(0, lanes, t_lanes):
         tl = min(t_lanes, lanes - l0)
         seg = buf[l0 * chunk_bytes:(l0 + tl) * chunk_bytes]  # seg.size: the tile's n_valid
-        cols = _upload_body(seg, tl, chunk_bytes, device)
-        with phase("device_fsm8_decode", n_symbols):
-            vals, exits, unconverged = fsm8_decode_fused(
-                cols, tables.next_state, tables.fused, tl, m, tables.mt, tables.s,
-                packed=packed, n_valid=seg.size, entry0=entry0,
-            )
+        rows, exits, unconverged = route_passes(seg, tl, chunk_bytes, device, tables, expand,
+                                                n_symbols, entry0=entry0)
         if unconverged:
             return decode_host(buf, table, n_symbols)
-        # this tile's columns, then the previous tile's symbols, leave the
-        # device before this tile's extraction
-        del cols
+        # this tile's columns left with the passes; the previous tile's
+        # symbols leave the device before this tile's extraction
         if pending is not None:
             filled = land_symbols(pending, out, filled, metas)
-        with phase("device_expand", n_symbols):
-            symbols = onepass_symbols(vals, m, packed, seg.size)
-        pending = _fetch_async(symbols)
-        del vals, symbols
-        entry0 = exits[-1:]
+        symbols = route_symbols(rows, tables, expand, seg.size, n_symbols)
+        # a tile's fetch overlaps the next tile's passes; a route of one
+        # tile fetches inside ``device_sym_fetch``
+        pending, entry0 = (_fetch_async(symbols), exits[-1:]) if tiled else (symbols, 0)
+        del rows, symbols
     filled = land_symbols(pending, out, filled, metas)
-    return assemble_symbols(out, filled, metas, n_symbols, table, buf.size)
+    host_validate(metas, n_symbols)
+    return host_check_bits(out, filled, n_symbols, table, buf.size)
 
 
 def expand_states(states: np.ndarray, body: np.ndarray, fsm: ByteFsm,
@@ -574,12 +581,9 @@ def decode_body_device(
         return np.zeros(0, dtype=np.uint8)
     buf = _body_buf(body)
     lanes = max(1, -(-buf.size // chunk_bytes))
-    with phase("decode_tables"):
-        fsm = build_byte_fsm(table)
-        next_state = next_state_tensor(fsm, device)
-    cols = _upload_body(buf, lanes, chunk_bytes, device)
-    with phase("device_fsm8_decode", n_symbols):
-        states, unconverged = fsm8_decode(cols.t().contiguous(), next_state, lanes)
+    fsm, next_state = route_tables(table, device, "host")
+    (_, states), _, unconverged = route_passes(buf, lanes, chunk_bytes, device, next_state,
+                                               "host", n_symbols)
     if unconverged:
         return decode_host(buf, table, n_symbols)
     with phase("device_state_fetch", buf.size):
@@ -601,11 +605,8 @@ def decompress_device(et: bytes, *, device, chunk_bytes: int = DEFAULT_CHUNK_BYT
     with phase("parse_header"):
         hdr = parse_header(et)
         body = et[hdr.body_start:]
-    if expand == "host":
-        out = decode_body_device(body, hdr.table, hdr.body_len, device=device,
-                                 chunk_bytes=chunk_bytes)
-    else:
-        out = decode_body_device_full(body, hdr.table, hdr.body_len, device=device,
-                                      chunk_bytes=chunk_bytes, expand=expand)
+    decode = (decode_body_device if expand == "host"
+              else functools.partial(decode_body_device_tiled, expand=expand))
+    out = decode(body, hdr.table, hdr.body_len, device=device, chunk_bytes=chunk_bytes)
     with phase("join_output"):
         return out.tobytes()

@@ -28,17 +28,16 @@ and compacts the words into one flat stream on its device
 lengths reach the host, and the process stitches them back in block order.
 
 Decode (:func:`decompress_sharded`): the body's chunks (lanes) are padded to
-a multiple of the world, and rank r owns lanes ``[r*L, (r+1)*L)``. The
-suffix sync pass and the fixed-point passes run on each rank's lanes, with
-one all-gather of the exit states per pass, so the entry chain spans every
-lane (``decode8._fixed_point``'s ``gather``). Then each rank expands,
-compacts and extracts its own lanes' symbols by the ``expand`` route on
-its device, as ``decompress_device`` does on one device, and fetches them
-in stream order; the per-lane metadata and the symbols of every rank, in
-rank order, are validated and joined once. The routes are the
-single-device ones; the JAX package's ``ENTREEPY_SHARDED_DEVICE_EXPAND``,
-``ENTREEPY_EXPAND`` and ``ENTREEPY_FUSED_PACKED`` become the ``expand``
-argument and the one-pass rule m <= 3.
+a multiple of the world, and rank r owns lanes ``[r*L, (r+1)*L)``. Each rank
+runs the single-device route step of ``ops/decode8.py`` on its lanes
+(``route_tables``, ``route_passes``, ``route_symbols``), its fixed point
+with one all-gather of the exit states per pass (:class:`_ExitGather`), so
+the entry chain spans every lane, and fetches its symbols in stream order;
+the process runs ``decode8``'s host tail once over every rank's metadata
+and symbols, in rank order. The JAX package's
+``ENTREEPY_SHARDED_DEVICE_EXPAND``, ``ENTREEPY_EXPAND`` and
+``ENTREEPY_FUSED_PACKED`` become the ``expand`` argument and the one-pass
+rule m <= 3.
 
 No rank raises before a collective that the others enter: a local fault
 (a compaction overflow poisons ``lane_tot`` to -1, a chunk's first invalid
@@ -80,7 +79,6 @@ import torch.distributed as dist
 from .. import runtime, trace
 from ..format.etformat import parse_header, serialize_header
 from ..format.fsm8 import ByteFsm, build_byte_fsm
-from ..format.hostcodec import _check_stream_bits
 from ..format.huffman import build_code_table
 from ..ops import decode8
 from ..ops.bitpack import (
@@ -91,14 +89,7 @@ from ..ops.bitpack import (
 )
 from ..ops.cuda_pack import pack_blocks
 from ..ops.encode import DEFAULT_BLOCK_BYTES
-from ..tables import (
-    code_tensors,
-    decode_tables,
-    expand_tables,
-    fetch,
-    next_state_tensor,
-    to_device,
-)
+from ..tables import code_tensors, fetch, to_device
 from ..trace import phase
 from ..utils.stitch import split_blocks, stitch_flat_payload, words_to_bytes
 from .mesh import Mesh, make_mesh
@@ -401,18 +392,6 @@ class _ExitGather:
             return torch.cat(_all_gather(exits, self.mesh)), self.mesh.rank * exits.numel()
 
 
-def _plane_symbols(symbols):
-    """The fetch of this rank's symbols, in stream order on the device, and
-    their per-lane metadata -> (lane_tot, w_inv with -1 for none, the
-    symbols)."""
-    syms, lane_tot, w_inv = decode8.fetch_symbols(symbols)
-    with phase("host_extract"):
-        syms = decode8.extract_plane_symbols(syms, syms.size)
-    w_inv = w_inv.astype(np.int64)
-    w_inv[w_inv >= decode8.NO_INVALID] = -1
-    return lane_tot.astype(np.int64), w_inv, syms
-
-
 def _expand_chunks(states: np.ndarray, body: np.ndarray, fsm: ByteFsm, chunk_bytes: int,
                    lanes: int):
     """This rank's (state, byte) pairs -> (symbols per lane int64[lanes], w_inv
@@ -446,22 +425,6 @@ def _expand_chunks(states: np.ndarray, body: np.ndarray, fsm: ByteFsm, chunk_byt
     return per_lane, w_inv, sy[live]
 
 
-def _assemble(metas: list, syms: list, n_symbols: int, table, n_body: int) -> np.ndarray:
-    """Every rank's (lane_tot, w_inv) and symbols, in rank order: the
-    serial-exact accept/reject over every lane, the symbols joined and
-    trimmed to ``n_symbols``, the exact-bit check."""
-    with phase("host_validate"):
-        g = np.concatenate([m.reshape(2, -1) for m in metas], axis=1)
-        decode8.validate_chunk_meta(g[0], g[1], n_symbols)
-    with phase("host_join"):
-        out = np.concatenate(syms)[:n_symbols]
-    if out.size < n_symbols:
-        raise ValueError(f"bitstream ended early: decoded {out.size} of {n_symbols} symbols")
-    with phase("host_check_bits"):
-        _check_stream_bits(out, table.lengths, n_body)
-    return out
-
-
 def decompress_sharded(et: bytes, mesh: Mesh | None = None, *,
                        chunk_bytes: int = decode8.DEFAULT_CHUNK_BYTES,
                        expand: str = "onepass") -> bytes:
@@ -490,7 +453,11 @@ def decompress_sharded(et: bytes, mesh: Mesh | None = None, *,
     if parts[0] is None:  # decided on gathered values: every rank takes the serial decoder
         out = decode8.decode_host(buf, table, n)
     else:
-        out = _assemble(*_join(parts), n, table, buf.size)
+        metas, syms = _join(parts)
+        decode8.host_validate([m.reshape(2, -1) for m in metas], n)
+        with phase("host_join"):
+            out = np.concatenate(syms)[:n]
+        decode8.host_check_bits(out, out.size, n, table, buf.size)
     _publish(last_decode_stats, stats)
     return out.tobytes()
 
@@ -501,47 +468,27 @@ def _decompress_rank(mesh: Mesh, buf: np.ndarray, table, n: int, fsm: ByteFsm,
     symbols) over its ``lanes`` -> ((lane metadata, symbols: each a list
     per rank, :func:`_to_host`), or None where the fixed point did not
     converge; its stats)."""
-    dev = mesh.device
-    lo = mesh.rank * lanes * chunk_bytes
+    dev, lo, gather = mesh.device, mesh.rank * lanes * chunk_bytes, _ExitGather(mesh)
     seg = buf[lo : lo + lanes * chunk_bytes]  # rank-local positions: seg.size bytes are real
-    gather = _ExitGather(mesh)
-    with phase("decode_tables"):
-        if expand == "host":
-            next_state = next_state_tensor(fsm, dev)
-        else:
-            tables = (decode_tables(fsm, dev) if expand == "onepass"
-                      else expand_tables(fsm, dev, split=expand == "split"))
-            next_state = tables.next_state
-    cols = decode8._upload_body(seg, lanes, chunk_bytes, dev)
-    with phase("device_fsm8_decode", n):
-        if expand == "onepass":
-            packed = tables.m <= 3
-            vals, _, unconverged = decode8.fsm8_decode_fused(
-                cols, next_state, tables.fused, n_real_lanes, tables.m, tables.mt, tables.s,
-                packed=packed, n_valid=seg.size, gather=gather)
-        else:
-            xs = cols.t().contiguous()
-            states, unconverged = decode8.fsm8_decode(xs, next_state, n_real_lanes, gather)
+    _, tables = decode8.route_tables(table, dev, expand, fsm)
+    rows, _, unconverged = decode8.route_passes(seg, lanes, chunk_bytes, dev, tables, expand, n,
+                                                n_real_lanes=n_real_lanes, gather=gather)
     stats = {"passes": gather.calls - 1, "lanes": lanes}
     if unconverged:
         return None, stats
     if expand == "host":
         with phase("device_state_fetch", seg.size):
-            (st,) = fetch(states.t().contiguous().reshape(-1)[: seg.size])
+            (st,) = fetch(rows[1].t().contiguous().reshape(-1)[: seg.size])
         with phase("host_expand", n):
             lane_tot, w_inv, syms = _expand_chunks(st, seg, fsm, chunk_bytes, lanes)
         stats.update(fetched_states_bytes=st.nbytes,
                      total_states_bytes=mesh.world * lanes * chunk_bytes)
     else:
-        with phase("device_expand", n):
-            if expand == "onepass":
-                symbols = decode8.onepass_symbols(vals, tables.m, packed, seg.size)
-            else:
-                symbols = decode8.plane_symbols(*decode8.run_expand(xs, states, tables, seg.size),
-                                                tables.m)
-        lane_tot, w_inv, syms = _plane_symbols(symbols)
+        syms, lane_tot, w_inv = decode8.take_symbols(
+            decode8.route_symbols(rows, tables, expand, seg.size, n))
     stats.update(local_symbols=int(syms.size), n_symbols=n)
     with phase("gather_symbols"):
-        part = (_to_host(torch.from_numpy(np.concatenate([lane_tot, w_inv])), mesh),
+        meta = np.concatenate([lane_tot, w_inv], dtype=np.int64)
+        part = (_to_host(torch.from_numpy(meta), mesh),
                 _to_host(torch.from_numpy(syms), mesh, ragged=True))
     return part, stats

@@ -1,6 +1,8 @@
 // entreepy_tpu_torch native host runtime: the port's own copy of
-// entreepy_tpu/runtime/native.cpp, unchanged apart from this note. The Python
-// bindings (runtime/__init__.py) bind the entry points the port calls.
+// entreepy_tpu/runtime/native.cpp, unchanged apart from this note and the
+// original's et_compact_symbols, which no path of the port calls (the symbols
+// are selected on the device). The Python bindings (runtime/__init__.py) bind
+// the entry points the port calls.
 //
 // The device owns the bulk compute path (ops/*.py); this library owns the
 // host-side serial/bit-twiddling work around it, replacing the numpy
@@ -12,8 +14,6 @@
 //   * et_unpack_body     — serial decode via the flat multi-level LUT
 //                          (reference decode.zig:143-203 probes a hash per
 //                          candidate length; here one table walk per symbol)
-//   * et_compact_symbols — gather the TPU FSM decoder's dense (packed,count)
-//                          emission slots into the contiguous output stream
 //   * et_assemble_payloads / et_stitch_words — compact per-block emission
 //                          slots and merge per-block bitstreams at bit
 //                          granularity into the single .et body
@@ -103,27 +103,6 @@ long long et_unpack_body(const uint8_t* body, long long body_bytes,
     }
   }
   return n_symbols;
-}
-
-// Compact the FSM decoder's dense emission: packed[i] holds up to 4 symbols
-// MSB-first, counts[i] in [0,4]. Writes exactly n_symbols and returns the
-// number written (may be < n_symbols if the slots run dry).
-long long et_compact_symbols(const uint32_t* packed, const int32_t* counts,
-                             long long n_slots, uint8_t* out,
-                             long long n_symbols) {
-  long long w = 0;
-  for (long long i = 0; i < n_slots && w < n_symbols; ++i) {
-    const uint32_t p = packed[i];
-    const int c = counts[i];
-    // c is 0 for most slots; unrolled MSB-first emit
-    if (c > 0) {
-      out[w++] = (uint8_t)(p >> 24);
-      if (c > 1 && w < n_symbols) out[w++] = (uint8_t)(p >> 16);
-      if (c > 2 && w < n_symbols) out[w++] = (uint8_t)(p >> 8);
-      if (c > 3 && w < n_symbols) out[w++] = (uint8_t)p;
-    }
-  }
-  return w;
 }
 
 // Expand the byte-FSM decoder's state sequence into symbols (ops/decode8.py:

@@ -137,7 +137,7 @@ def test_invalid_edge_rejected():
     lengths[ord("g")] = codes[ord("g")] = 0
     pruned = CodeTable(codes, lengths)
     with pytest.raises(ValueError, match="invalid bitstream|corrupt|ended early"):
-        decode8.decode_body_device_full(body, pruned, arr.size, device="cpu")
+        decode8.decode_body_device_tiled(body, pruned, arr.size, device="cpu")
 
 
 def test_unconverged_self_sync_uses_host_decoder(monkeypatch, midsummer):

@@ -764,7 +764,7 @@ def test_tiled_decode(kind, tile_lanes, dev):
     assert (decode_tables_for(blob, dev)[0].m <= 3) is (kind == "text")
     calls = decode8.decode_host.calls
     before = cuda_fsm8.sync_pass.launches
-    one_tile = decode8.decode_body_device_full(buf, table, n, device=dev, chunk_bytes=64)
+    one_tile = decode8.decode_body_device_tiled(buf, table, n, device=dev, chunk_bytes=64)
     assert cuda_fsm8.sync_pass.launches - before == 1
     before = cuda_fsm8.sync_pass.launches
     tiled = decode8.decode_body_device_tiled(buf, table, n, device=dev, chunk_bytes=64,

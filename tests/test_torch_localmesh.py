@@ -351,11 +351,43 @@ def test_host_tail_runs_once(n, op, monkeypatch, host_ets):
         assert compress_sharded(data, _local(n), block_bytes=BLOCK) == host_ets["text"]
     else:
         names = ["validate_chunk_meta", "_check_stream_bits"]
-        spy(decode8, names[0])
-        spy(pdist, names[1])
+        for name in names:
+            spy(decode8, name)
         assert decompress_sharded(host_ets["text"], _local(n)) == data
     main = threading.main_thread().name
     assert where == [(name, main) for name in names]
+
+
+@pytest.mark.parametrize("route", ["onepass", "split", "fused"])
+def test_card_and_mesh_run_one_route_step(route, monkeypatch, host_ets):
+    """One device and each rank of a local mesh decode through the same
+    route step of ``decode8``: its passes half, then its symbols half, for
+    the route asked for, so the two paths cannot fork again."""
+    import inspect
+
+    steps = []
+
+    def spy(name):
+        real = getattr(decode8, name)
+        sig = inspect.signature(real)
+
+        def step(*a, **k):
+            expand = sig.bind(*a, **k).arguments["expand"]
+            steps.append((name, expand, threading.current_thread().name))
+            return real(*a, **k)
+
+        monkeypatch.setattr(decode8, name, step)
+
+    for name in ("route_passes", "route_symbols"):
+        spy(name)
+    halves = [("route_passes", route), ("route_symbols", route)]
+    assert decode8.decompress_device(host_ets["text"], device="cpu", expand=route) == _corpus("text")
+    assert steps == [(*h, threading.main_thread().name) for h in halves]
+    steps.clear()
+    assert decompress_sharded(host_ets["text"], _local(2), expand=route) == _corpus("text")
+    for r in range(2):
+        assert [s[:2] for s in steps if s[2] == f"entreepy-rank-{r}"] == halves
+    assert len(steps) == 2 * len(halves)
 
 
 # --- auto and the CLI ---

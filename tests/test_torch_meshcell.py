@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 import entreepy_tpu_torch.parallel as par  # noqa: E402
 from entreepy_tpu_torch import trace  # noqa: E402
+from entreepy_tpu_torch.ops import decode8  # noqa: E402
 from entreepy_tpu_torch.parallel import compress_sharded, decompress_sharded, make_mesh  # noqa: E402
 from entreepy_tpu_torch.parallel import dist as pdist  # noqa: E402
 from etbench.cells import load_cell  # noqa: E402
@@ -100,21 +101,22 @@ def test_the_cell_runs_correct_over_four_cpu_ranks(trace_on, cpu_mesh, monkeypat
 
 
 def test_one_rank_altering_a_symbol_is_not_correct(cpu_mesh, monkeypatch):
-    """A symbol altered in rank 1's ``_plane_symbols`` only: the harness
-    must find it."""
+    """A symbol altered where rank 1 extracts its fetched symbols
+    (``decode8.extract_plane_symbols``, the harness's fault point) only:
+    the harness must find it."""
     cell = _cell()
     hits = []
-    real = pdist._plane_symbols
+    real = decode8.extract_plane_symbols
 
-    def faulty(symbols):
-        lane_tot, w_inv, syms = real(symbols)
+    def faulty(syms, room):
+        syms = real(syms, room)
         if threading.current_thread().name == "entreepy-rank-1":
             hits.append(1)
             syms = syms.copy()
             syms[syms.size // 2] ^= 1
-        return lane_tot, w_inv, syms
+        return syms
 
-    monkeypatch.setattr(pdist, "_plane_symbols", faulty)
+    monkeypatch.setattr(decode8, "extract_plane_symbols", faulty)
     res = execute(cell, 12345, 0.3, False, Port(cell), time.perf_counter())
     assert hits, "the fault was never reached"
     assert res["correct"] is False

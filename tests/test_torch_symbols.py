@@ -187,8 +187,8 @@ def test_invalid_transition_before_and_after_the_last_symbol(n, expand):
     words."""
     body, table, _ = _pruned(1200)
     want = _outcome(lambda: decode8.decode_host(body, table, n))
-    got = _outcome(lambda: decode8.decode_body_device_full(body, table, n, device="cpu",
-                                                           chunk_bytes=64, expand=expand))
+    got = _outcome(lambda: decode8.decode_body_device_tiled(body, table, n, device="cpu",
+                                                            chunk_bytes=64, expand=expand))
     assert isinstance(got, tuple) and isinstance(want, tuple)
     if n > 1200:
         assert got[1] == "invalid bitstream: unreachable trie edge"
@@ -206,8 +206,8 @@ def test_cap_overflow_still_raises(expand, monkeypatch):
     table, n, buf = body_for(compress_host(data))
     monkeypatch.setattr(decode8, "sym_cap", lambda counts, m: 1)
     with pytest.raises(ValueError, match="ended early"):
-        decode8.decode_body_device_full(buf, table, n, device="cpu", chunk_bytes=64,
-                                        expand=expand)
+        decode8.decode_body_device_tiled(buf, table, n, device="cpu", chunk_bytes=64,
+                                         expand=expand)
 
 
 def test_wrappers_reject_bad_operands():

@@ -47,7 +47,7 @@ def test_tiled_decode_matches_jax(name, tile_lanes, request):
     data = _data(name, request)
     _, hdr, body = _parts(data)
     args = (body, hdr.table, hdr.body_len)
-    one_tile = td.decode_body_device_full(*args, device="cpu", chunk_bytes=CHUNK)
+    one_tile = td.decode_body_device_tiled(*args, device="cpu", chunk_bytes=CHUNK)
     got = td.decode_body_device_tiled(*args, device="cpu", chunk_bytes=CHUNK,
                                       tile_lanes=tile_lanes)
     want = jd.decode_body_device_tiled(*args, chunk_bytes=CHUNK, tile_lanes=tile_lanes)
@@ -127,19 +127,29 @@ def test_mid_train_tile_unconverged_uses_host_decoder(monkeypatch, midsummer):
 ])
 def test_router(monkeypatch, expand, tile_lanes, tiled, midsummer):
     """The one-pass route always streams in tiles (one tile up to
-    TILE_LANES lanes); the two-pass routes stay untiled."""
+    TILE_LANES lanes); the two-pass routes run the same route step as one
+    tile of every lane, the device ones through the same tile loop."""
     data = midsummer[:20000]
-    et, _, _ = _parts(data)
+    et, _, body = _parts(data)
     monkeypatch.setattr(td, "TILE_LANES", tile_lanes)
-    real, calls = td.decode_body_device_tiled, []
+    real_loop, real_passes, loops, tiles = td.decode_body_device_tiled, td.route_passes, [], []
 
-    def spy(*a, **k):
-        calls.append(k.get("tile_lanes"))
-        return real(*a, **k)
+    def loop(*a, **k):
+        loops.append(k.get("tile_lanes"))
+        return real_loop(*a, **k)
 
-    monkeypatch.setattr(td, "decode_body_device_tiled", spy)
+    def passes(seg, lanes, *a, **k):
+        tiles.append(lanes)
+        return real_passes(seg, lanes, *a, **k)
+
+    monkeypatch.setattr(td, "decode_body_device_tiled", loop)
+    monkeypatch.setattr(td, "route_passes", passes)
     assert td.decompress_device(et, device="cpu", chunk_bytes=CHUNK, expand=expand) == data
-    assert calls == ([None] if tiled else [])
+    lanes = -(-len(body) // CHUNK)
+    assert loops == ([] if expand == "host" else [None])
+    assert tiles == ([min(tile_lanes, lanes - l0) for l0 in range(0, lanes, tile_lanes)]
+                     if tiled else [lanes])
+    assert (len(tiles) > 1) is (tiled and tile_lanes < lanes)
 
 
 def test_untiled_two_pass_keeps_its_bound(monkeypatch, midsummer):
@@ -149,8 +159,8 @@ def test_untiled_two_pass_keeps_its_bound(monkeypatch, midsummer):
     monkeypatch.setattr(td, "MAX_UNTILED_BYTES", 1024)
     monkeypatch.setattr(td, "TILE_LANES", 8)
     with pytest.raises(NotImplementedError, match="no tiled route"):
-        td.decode_body_device_full(body, hdr.table, hdr.body_len, device="cpu",
-                                   chunk_bytes=CHUNK, expand="split")
+        td.decode_body_device_tiled(body, hdr.table, hdr.body_len, device="cpu",
+                                    chunk_bytes=CHUNK, expand="split")
     assert td.decompress_device(et, device="cpu", chunk_bytes=CHUNK) == midsummer[:5000]
 
 
@@ -285,7 +295,7 @@ def test_fetch_starts_in_its_own_stage(expand, stage, monkeypatch, midsummer):
         got = td.decode_body_device_tiled(body, hdr.table, hdr.body_len, device="cpu",
                                           chunk_bytes=CHUNK, tile_lanes=8)
     else:
-        got = td.decode_body_device_full(body, hdr.table, hdr.body_len, device="cpu",
-                                         chunk_bytes=CHUNK, expand=expand)
+        got = td.decode_body_device_tiled(body, hdr.table, hdr.body_len, device="cpu",
+                                          chunk_bytes=CHUNK, expand=expand)
     assert bytes(got) == data
     assert starts and set(starts) == {stage}, starts

@@ -37,6 +37,7 @@ from entreepy_tpu_torch import trace  # noqa: E402
 from entreepy_tpu_torch.format import fsm8 as port_fsm8  # noqa: E402
 from entreepy_tpu_torch.ops import cuda_fsm8  # noqa: E402
 from entreepy_tpu_torch.ops import decode8 as td  # noqa: E402
+from entreepy_tpu_torch.parallel import decompress_sharded, make_mesh  # noqa: E402
 from entreepy_tpu_torch.tables import expand_tables  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -395,8 +396,7 @@ def test_unknown_route_raises(macbeth):
                                                        expand="bogus"),
                  lambda: entreepy_tpu_torch.decompress(et, backend="host", expand="bogus"),
                  lambda: td.decompress_device(et, device="cpu", expand="bogus"),
-                 lambda: td.decode_body_device_full(b"\x00", None, 1, device="cpu",
-                                                    expand="host")):
+                 lambda: decompress_sharded(et, make_mesh(devices=["cpu"]), expand="bogus")):
         with pytest.raises(ValueError, match="expand route"):
             call()
     assert entreepy_tpu_torch.decompress(et, backend="device", device="cpu",
