@@ -11,7 +11,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 1. device  — the card's name and power limit (nvidia-smi), CUDA version,
              capability (must be 9.0), nvcc;
 2. build   — compile the kernels of entreepy_tpu_torch/csrc with nvcc;
-3. kernels — each of the ten kernels against its plain PyTorch version at
+3. kernels — each of the eleven kernels against its plain PyTorch version at
              the shapes of the 5.2 MB text corpus (and of the skewed and
              run-heavy corpora for the unpacked fused pass, the sync pass's
              and the emit pass's 256-state tables and the expansions' wider
@@ -24,7 +24,10 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              at a full 65,536-lane tile of the
              100 MB text body, the pack at a full 32 MiB encode tile of the
              100 MB text, the stitch at the 5.2 MB text's tile and a 32 MiB tile of
-             the 100 MB text, at several base shifts with a carried word; a kernel's
+             the 100 MB text, at several base shifts with a carried word, the
+             tables kernel (fsm_tables) at the code tables of the text, skewed,
+             run-heavy and random corpora against the host's NumPy build, whose
+             time is printed beside the card build's host and device times; a kernel's
              time is a run of back-to-back launches between
              one CUDA-event pair, divided by the count; a plain version's is
              the median CUDA-event time of single calls; each kernel's bound
@@ -32,9 +35,9 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              written once) over the card's 3.35 TB/s, and its library time
              that of one PyTorch call computing the same function, where one
              exists (the full-table expansion: one advanced-indexing call);
-   guard   — every one of the kernels' 38 template instantiations at small
+   guard   — every one of the kernels' 39 template instantiations at small
              odd shapes (tools/sanitize_kernels.py's calls; lanes 1, 7, 33,
-             300): torch.profiler must see all 38 launch; then each call
+             300): torch.profiler must see all 39 launch; then each call
              twice, every input and every tensor the wrappers allocate
              inside guard bands of a poison byte (0xA5, then 0x5A): no guard
              band may change (a write out of bounds), no input may change,
@@ -113,7 +116,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
              text, ``weak`` over worlds 1 and 2): exit 0, every row's .et equal
              to the host backend's and its round trip exact, the headline's
              ``cuda_*`` probe figures positive with each bound share at most
-             100 %, all ten kernels launched by the headline's device rows
+             100 %, all eleven kernels launched by the headline's device rows
              and by the 5 MB sweep's, no module of JAX or of entreepy_tpu in
              the bench's process; every number beside the card. Each path runs
              with the launch counts set to 0 and must launch each of its
@@ -176,17 +179,19 @@ from entreepy_tpu_torch.bench import bound_ms, kernel_ms, make_corpus  # noqa: E
 from entreepy_tpu_torch.bench.timing import rss_peak  # noqa: E402
 from entreepy_tpu_torch import _build, api, cli, runtime, trace  # noqa: E402
 from entreepy_tpu_torch.ops import (  # noqa: E402
-    cuda_compact, cuda_fsm8, cuda_pack, cuda_stitch, cuda_symbols, decode8,
+    cuda_compact, cuda_fsm8, cuda_pack, cuda_stitch, cuda_symbols, cuda_tables, decode8,
 )
 from entreepy_tpu_torch.ops.bitpack import (  # noqa: E402
     compact_plane_rows, grouped_counts_plane, plane_cap_g, plane_sub_for,
 )
 from entreepy_tpu_torch.format import parse_header  # noqa: E402
+from entreepy_tpu_torch.format.fsm8 import _build_byte_fsm, _build_trie  # noqa: E402
 from entreepy_tpu_torch.ops.encode import DEFAULT_BLOCK_BYTES, TILE_BLOCKS  # noqa: E402
 from entreepy_tpu_torch.parallel import dist as pdist  # noqa: E402
 from entreepy_tpu_torch.parallel import make_mesh, multihost  # noqa: E402
 from entreepy_tpu_torch.tables import (  # noqa: E402
-    body_for, code_tensors_for, decode_tables_for, expand_tables_for,
+    body_for, card_decode_tables, code_tensors_for, code_trie, decode_tables, decode_tables_for,
+    expand_tables_for,
 )
 
 DATA = ROOT / "tests" / "data"
@@ -215,6 +220,9 @@ KERNELS = {  # wrapper -> (name, source, TPU kernel it replaces)
     # the single-device encode's stitch; the JAX package stitches on the host
     cuda_stitch.stitch_tile: ("stitch_tile", "entreepy_tpu_torch/csrc/stitch.cu",
                               "none (host stitch)"),
+    # the one-pass decode's tables on the card; the JAX package builds them in NumPy
+    cuda_tables.fsm_tables: ("fsm_tables", "entreepy_tpu_torch/csrc/tables.cu",
+                             "none (host NumPy build)"),
 }
 SYMBOLS = (cuda_symbols.symbol_counts, cuda_symbols.write_symbols)
 # every kernel but the single-device encode's stitch: the sharded encode stitches on the host
@@ -223,19 +231,22 @@ MESH_KERNELS = tuple(fn for fn in KERNELS if fn is not cuda_stitch.stitch_tile)
 # and the one-pass decode) and each two-pass decode route.
 PATH_KERNELS = {
     "device": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks,
-               cuda_compact.compact_rows, *SYMBOLS, cuda_stitch.stitch_tile),
+               cuda_compact.compact_rows, *SYMBOLS, cuda_stitch.stitch_tile,
+               cuda_tables.fsm_tables),
     "split": (cuda_fsm8.sync_pass, cuda_fsm8.emit_pass, cuda_fsm8.expand_pass_split,
               cuda_compact.compact_rows, cuda_symbols.write_symbols),
     "fused": (cuda_fsm8.sync_pass, cuda_fsm8.emit_pass, cuda_fsm8.expand_pass,
               cuda_compact.compact_rows, cuda_symbols.write_symbols),
     "host": (cuda_fsm8.sync_pass, cuda_fsm8.emit_pass),
     # the tiled decode at narrow tiles: packed text and unpacked skewed rows
-    "tiles": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_compact.compact_rows, *SYMBOLS),
+    "tiles": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_compact.compact_rows, *SYMBOLS,
+              cuda_tables.fsm_tables),
     # auto routing at 5.2 MB (host: no launch) and 100 MB (the device)
     "auto": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks, *SYMBOLS,
-             cuda_stitch.stitch_tile),
+             cuda_stitch.stitch_tile, cuda_tables.fsm_tables),
     "cli": (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_pack.pack_blocks,
-            cuda_compact.compact_rows, *SYMBOLS, cuda_stitch.stitch_tile),
+            cuda_compact.compact_rows, *SYMBOLS, cuda_stitch.stitch_tile,
+            cuda_tables.fsm_tables),
     # the sharded backend at world 1: every route, so every kernel but the stitch
     "sharded": MESH_KERNELS,
     # the JAX package's largest configurations (tools/large_check.py)
@@ -456,6 +467,39 @@ def stitch_check(data: bytes, blob: bytes, shift: int = 0, seed: int = 0):
             bound_ms(plane, counts, acc, nbits, out), None)
 
 
+def tables_check(blob: bytes):
+    """Tables kernel vs its plain version and the host's NumPy build
+    (``_build_byte_fsm``, ``decode_tables``) on the code table of ``blob``:
+    next_state and the fused table exact. Returns ((err, ms, plain_ms,
+    bound_ms, library_ms), a label)."""
+    table = parse_header(blob).table
+    children, leaf_sym = _build_trie(table)
+    width, m, mt, s = cuda_tables.trie_layout(children, leaf_sym)
+    args = (cuda_tables.pack_trie(children, leaf_sym), width, s, mt, DEV)
+    ns, fused = cuda_tables.fsm_tables(*args)
+    host = decode_tables(_build_byte_fsm(table), DEV)
+    plain = cuda_tables.fsm_tables_plain(*args)
+    err = max(max_err(ns, host.next_state), max_err(fused, host.fused),
+              max_err(ns, plain[0]), max_err(fused, plain[1]))
+    return ((err, kernel_ms(lambda: cuda_tables.fsm_tables(*args)),
+             cuda_ms(lambda: cuda_tables.fsm_tables_plain(*args), 3), bound_ms(ns, fused), None),
+            f"{children.shape[0]} nodes, S={width} m={m} s={s}, fused {tuple(fused.shape)}")
+
+
+def table_build_ms(blob: bytes) -> tuple[float, float, float]:
+    """The one-pass tables of ``blob``'s code table built three ways, ms,
+    median of 7 on the host clock, outside the launch counts: the host's
+    NumPy build and upload (``_build_byte_fsm``, ``decode_tables``), the
+    card build to its launch (``code_trie``: trie and layout DP, then
+    ``card_decode_tables``: the launch) and to the tables' end."""
+    table = parse_header(blob).table
+    with uncounted():
+        return (wall_ms(lambda: decode_tables(_build_byte_fsm(table), DEV), 7),
+                wall_ms(lambda: card_decode_tables(code_trie(table), DEV), 7),
+                wall_ms(lambda: (card_decode_tables(code_trie(table), DEV),
+                                 torch.cuda.synchronize()), 7))
+
+
 def fused_check(xs, tables, n_valid, lanes, packed: bool):
     """Fused kernel vs plain at converged entry states: row0/count bytes and
     exits exact, symbol slots compared where live (j < count). Returns (err,
@@ -568,7 +612,8 @@ def large_kernel_checks(data: bytes, blob: bytes) -> list:
     the host route's sync and emit passes over the whole body, the
     untiled sharded decode's fused pass where the body stays below the 2
     GiB escape, and the untiled sharded compress's pack over every block
-    and compaction of its words. Kernel times are at the full shape, plain
+    and compaction of its words; the one-pass tables of its code table
+    (``tables_check``). Kernel times are at the full shape, plain
     times on what was compared. Returns [(wrapper, label, (err, ms,
     plain_ms, bound_ms, None))]."""
     out = []
@@ -622,6 +667,8 @@ def large_kernel_checks(data: bytes, blob: bytes) -> list:
     del pk
     out.append((cuda_stitch.stitch_tile, "that tile's plane, shift 0",
                 stitch_check(data[: TILE_BLOCKS * DEFAULT_BLOCK_BYTES], blob)))
+    res, label = tables_check(blob)
+    out.append((cuda_tables.fsm_tables, f"the one-pass tables of its code table: {label}", res))
 
     codes, lengths = code_tensors_for(blob, DEV)
     blocks, valid = ab.encode_blocks(data, DEFAULT_BLOCK_BYTES, DEV)
@@ -709,6 +756,13 @@ def _write_err(a, out, win):
     return max_err(out[lo:], plain)
 
 
+def _tables_err(a, out, win):
+    """Both tables whole: the trie is the kernel's only input."""
+    ns, fused = cuda_tables.fsm_tables_plain(a["edges"], a["width"], a["s"], a["mt"],
+                                             out[0].device)
+    return max(max_err(out[0], ns), max_err(out[1], fused))
+
+
 def _stitch_err(a, out, win):
     """The whole stream: a window's bytes depend on every lane before it."""
     return max_err(out, cuda_stitch.stitch_tile_plain(
@@ -728,6 +782,7 @@ SHADOW = {
     cuda_symbols.symbol_counts: (_counts_err, ("words", 1)),
     cuda_symbols.write_symbols: (_write_err, ("items", 1)),
     cuda_stitch.stitch_tile: (_stitch_err, ("plane", 1)),
+    cuda_tables.fsm_tables: (_tables_err, ("edges", 0)),
 }
 
 
@@ -1144,12 +1199,13 @@ def card_kernel_checks(text: bytes, blob: bytes, cards, show, merge) -> None:
             count, write, _ = symbols_check(*onepass_items(xs, tables, n_valid, lanes))
             checks += list(zip(SYMBOLS, (count, write)))
             checks.append((cuda_stitch.stitch_tile, stitch_check(text, blob, 5, 5)))
+            checks.append((cuda_tables.fsm_tables, tables_check(blob)[0]))
             del xs, tables, pk
             torch.cuda.empty_cache()
         for fn, res in checks:
             merge(fn, res)
             show(f"cuda:{c} {KERNELS[fn][0]}, text 5.2 MB shapes", res, "multicard")
-        print(f"[multicard] cuda:{c}: all ten kernels equal their plain versions, "
+        print(f"[multicard] cuda:{c}: all eleven kernels equal their plain versions, "
               f"{time.perf_counter() - t0:.1f} s | {card_of(c)}", flush=True)
 
 
@@ -1350,7 +1406,7 @@ def bench_headline(line: dict, card: str) -> None:
 
 def bench_scale(rows: list[dict], label: str, card: str) -> None:
     """Every row's .et equal to the host backend's and round trip exact;
-    the device rows of all routes launch all ten kernels."""
+    the device rows of all routes launch all eleven kernels."""
     bad = [(r["corpus"], r["backend"], r["route"]) for r in rows
            if not (r["et_equals_host"] and r["round_trip"])]
     require(not bad, f"[bench] {label}: rows not exact: {bad}")
@@ -1678,6 +1734,22 @@ def main(argv: list[str]) -> int:
                  symbols_check(*onepass_items(tile_xs, big_tables, tile.size, tile_lanes)))
     del tile_xs
 
+    for i, (kind, blob) in enumerate((("text 5.2 MB", text_blob), ("skewed 5 MB", blobs["skewed"]),
+                                      ("runheavy 5 MB", blobs["runheavy"]),
+                                      ("random 5 MB", et.compress(corpus("random", 5 * MB),
+                                                                  backend="host")))):
+        res, label = tables_check(blob)
+        host_ms, launch_ms, card_ms = table_build_ms(blob)
+        if i == 0:
+            results[cuda_tables.fsm_tables] = res
+        else:
+            merge(cuda_tables.fsm_tables, res)
+        show(f"fsm_tables, {kind} code table: {label}", res)
+        print(f"[kernels] the one-pass tables of the {kind} code table: host NumPy build "
+              f"(_build_byte_fsm, decode_tables) {host_ms:.3f} ms; on the card "
+              f"(card_decode_tables: trie, layout DP, launch) {launch_ms:.3f} ms to the launch, "
+              f"{card_ms:.3f} ms to the tables' end | {card}")
+
     results = {fn: results[fn] for fn in KERNELS}  # the JSON line's order
     for fn, res in results.items():
         show(f"{KERNELS[fn][0]} (50 back-to-back launches per event pair; plain: median "
@@ -1688,7 +1760,8 @@ def main(argv: list[str]) -> int:
           "dependent lookups (its tail slots' column is the first lookup's value & 15) and "
           "a combine rule, the pack a per-block prefix sum and bit scatter, the compaction "
           "a per-column stable compaction, the symbols kernel per-lane sums and a "
-          "selection in lane-major order over slots unpacked from the words first")
+          "selection in lane-major order over slots unpacked from the words first, the "
+          "tables kernel a bit-serial walk of a trie from every (state, byte)")
     # 3b. guard: every kernel instantiation, launched and checked inside guard bands
     t0 = time.perf_counter()
     guard_calls = sk.plan(DEV)

@@ -28,7 +28,8 @@ import sys
 
 from .. import api
 from ..api import compress, decompress
-from ..ops import cuda_compact, cuda_fsm8, cuda_pack, cuda_stitch, cuda_symbols, decode8
+from ..ops import (cuda_compact, cuda_fsm8, cuda_pack, cuda_stitch, cuda_symbols, cuda_tables,
+                   decode8)
 from . import probe
 from .corpus import TEXT_BYTES, build_corpus, extras
 from .timing import device_info, measure, wall
@@ -40,7 +41,7 @@ METRIC = "decode_throughput_5MB"
 KERNELS = (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_fsm8.emit_pass,
            cuda_fsm8.expand_pass_split, cuda_fsm8.expand_pass, cuda_pack.pack_blocks,
            cuda_compact.compact_rows, cuda_symbols.symbol_counts, cuda_symbols.write_symbols,
-           cuda_stitch.stitch_tile)
+           cuda_stitch.stitch_tile, cuda_tables.fsm_tables)
 
 
 def reset_launches() -> None:

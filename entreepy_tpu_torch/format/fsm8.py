@@ -98,8 +98,11 @@ _FSM_CACHE_MAX = 8
 
 def build_byte_fsm(table: CodeTable) -> ByteFsm:
     """Code table -> byte-granularity FSM, memoized on the table content
-    (the ~10 ms vectorized build would otherwise dominate small decodes).
-    A miss is the stage ``fsm_build`` and one ``fsm_builds`` count."""
+    (the vectorized build takes ~10-20 ms with ``fused_decode_tensors``).
+    A miss is the stage ``fsm_build`` and one ``fsm_builds`` count. The
+    one-pass route on a CUDA device builds no ByteFsm: its tables are built
+    on the card from the trie (``tables.card_decode_tables``), and a decode
+    whose tables differ each call, as most do, never hits this cache."""
     key = table.lengths.tobytes() + table.codes.tobytes()
     hit = _FSM_CACHE.get(key)
     if hit is not None:

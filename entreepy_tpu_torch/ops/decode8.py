@@ -48,7 +48,11 @@ from ..format.fsm8 import ByteFsm, build_byte_fsm
 from ..format.hostcodec import _check_end_byte, _check_stream_bits
 from ..format.huffman import CodeTable
 from ..tables import (
+    CodeTrie,
     ExpandTables,
+    builds_on_card,
+    card_decode_tables,
+    code_trie,
     decode_tables,
     expand_tables,
     fetch,
@@ -390,14 +394,20 @@ def _upload_body(buf: np.ndarray, lanes: int, chunk_bytes: int, device) -> torch
         return bytes_to_cols(padded, lanes, chunk_bytes, device)
 
 
-def route_tables(table: CodeTable, device, expand: str, fsm: ByteFsm | None = None):
+def route_tables(table: CodeTable, device, expand: str,
+                 fsm: ByteFsm | CodeTrie | None = None):
     """The ``expand`` route's tables on ``device`` (stage ``decode_tables``)
     -> (fsm, tables): the one-pass ``DecodeTables``, the two-pass
     ``ExpandTables`` with the split or the full expand table, or on the
-    host route the state pass's ``next_state`` alone. ``fsm`` is built from
-    ``table`` inside the stage unless given (a mesh's ranks share the
-    caller's)."""
+    host route the state pass's ``next_state`` alone. ``fsm`` is what they
+    are built from, built from ``table`` inside the stage unless given (a
+    mesh's ranks share the caller's): on a CUDA device the one-pass tables'
+    ``CodeTrie``, from which the card builds them
+    (``tables.card_decode_tables``; fsm None on return), else a
+    ``ByteFsm``."""
     with phase("decode_tables"):
+        if builds_on_card(device, expand):
+            return None, card_decode_tables(code_trie(table) if fsm is None else fsm, device)
         fsm = build_byte_fsm(table) if fsm is None else fsm
         if expand == "onepass":
             return fsm, decode_tables(fsm, device)

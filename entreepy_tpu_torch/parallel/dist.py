@@ -89,7 +89,7 @@ from ..ops.bitpack import (
 )
 from ..ops.cuda_pack import pack_blocks
 from ..ops.encode import DEFAULT_BLOCK_BYTES
-from ..tables import code_tensors, fetch, to_device
+from ..tables import CodeTrie, builds_on_card, code_trie, code_tensors, fetch, to_device
 from ..trace import phase
 from ..utils.stitch import split_blocks, stitch_flat_payload, words_to_bytes
 from .mesh import Mesh, make_mesh
@@ -448,8 +448,12 @@ def decompress_sharded(et: bytes, mesh: Mesh | None = None, *,
     if lanes * chunk_bytes >= _INT32_SAFE_BODY:
         return decode8.decode_body_device_tiled(buf, table, n, device=mesh.device,
                                                 chunk_bytes=chunk_bytes).tobytes()
-    parts, stats = _spmd(mesh, _decompress_rank, buf, table, n, build_byte_fsm(table),
-                         n_real_lanes, lanes, chunk_bytes=chunk_bytes, expand=expand)
+    # what the ranks' tables are built from, built once here: the one-pass route's on cards
+    # each rank builds on its own card from one packed trie; every other route's from one ByteFsm
+    on_card = all(builds_on_card(d, expand) for d in mesh.devices or (mesh.device,))
+    fsm = code_trie(table) if on_card else build_byte_fsm(table)
+    parts, stats = _spmd(mesh, _decompress_rank, buf, table, n, fsm, n_real_lanes, lanes,
+                         chunk_bytes=chunk_bytes, expand=expand)
     if parts[0] is None:  # decided on gathered values: every rank takes the serial decoder
         out = decode8.decode_host(buf, table, n)
     else:
@@ -462,7 +466,7 @@ def decompress_sharded(et: bytes, mesh: Mesh | None = None, *,
     return out.tobytes()
 
 
-def _decompress_rank(mesh: Mesh, buf: np.ndarray, table, n: int, fsm: ByteFsm,
+def _decompress_rank(mesh: Mesh, buf: np.ndarray, table, n: int, fsm: ByteFsm | CodeTrie,
                      n_real_lanes: int, lanes: int, *, chunk_bytes: int, expand: str):
     """One rank's :func:`decompress_sharded` of the body ``buf`` (``n``
     symbols) over its ``lanes`` -> ((lane metadata, symbols: each a list

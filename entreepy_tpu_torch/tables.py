@@ -1,7 +1,9 @@
 """The codec's lookup tables as device tensors.
 
-The port builds every table in numpy (``format``, its copy of the JAX
-package's ``entreepy_tpu.format``); this module only carries them onto a
+The port builds its tables in numpy (``format``, its copy of the JAX
+package's ``entreepy_tpu.format``), except the one-pass decode's tables on a
+CUDA device, which the tables kernel builds there from the code trie
+(:func:`card_decode_tables`). This module carries the rest onto a
 device, as plain integers, through :func:`to_device`, which every upload of
 the pipelines goes through, as every fetch but the decode plane's
 asynchronous one goes through :func:`fetch`, or :func:`fetch_into` where the
@@ -23,6 +25,7 @@ import torch
 from .format.etformat import parse_header
 from .format.fsm8 import (
     ByteFsm,
+    _build_trie,
     build_byte_fsm,
     expand_tensors,
     fused_decode_tensors,
@@ -30,7 +33,8 @@ from .format.fsm8 import (
 )
 from .format.huffman import CodeTable
 from .ops.cuda_fsm8 import expand_vector_table
-from .trace import count
+from .ops.cuda_tables import fsm_tables, pack_trie, trie_layout
+from .trace import count, phase
 
 
 @dataclass(frozen=True)
@@ -91,6 +95,49 @@ def decode_tables(fsm: ByteFsm, device) -> DecodeTables:
         mt=mt,
         s=s,
     )
+
+
+def builds_on_card(device, expand: str) -> bool:
+    """Whether the ``expand`` route's tables on ``device`` are built there
+    by the tables kernel (:func:`card_decode_tables`): the one-pass route on
+    a CUDA device. Every other route and device builds a ``ByteFsm`` on the
+    host."""
+    return expand == "onepass" and torch.device(device).type == "cuda"
+
+
+@dataclass(frozen=True)
+class CodeTrie:
+    """What the host builds of the one-pass tables that the card builds:
+    the code trie packed as the tables kernel takes it (``edges``
+    uint16[2 * nodes], ``ops/cuda_tables.pack_trie``) and the tables' layout
+    (``trie_layout``: S, m, mt, s)."""
+
+    edges: np.ndarray
+    width: int
+    m: int
+    mt: int
+    s: int
+
+
+def code_trie(table: CodeTable) -> CodeTrie:
+    """``table``'s :class:`CodeTrie` (stage ``fsm_build``): its trie
+    (``fsm8._build_trie``), packed, and the layout DP; well under a
+    millisecond of host time."""
+    with phase("fsm_build"):
+        children, leaf_sym = _build_trie(table)
+        return CodeTrie(pack_trie(children, leaf_sym), *trie_layout(children, leaf_sym))
+
+
+def card_decode_tables(trie: CodeTrie, device) -> DecodeTables:
+    """:func:`decode_tables` of ``build_byte_fsm(table)``, built on the CUDA
+    ``device`` from ``code_trie(table)`` by one launch of the tables kernel
+    (``ops/cuda_tables``): no ``ByteFsm``, no upload, no cache. The stage
+    ``fsm_build``, one ``fsm_builds`` and one ``fsm_device_builds`` count."""
+    with phase("fsm_build"):
+        next_state, fused = fsm_tables(trie.edges, trie.width, trie.s, trie.mt, device)
+    count("fsm_builds", 1)
+    count("fsm_device_builds", 1)
+    return DecodeTables(next_state=next_state, fused=fused, m=trie.m, mt=trie.mt, s=trie.s)
 
 
 @dataclass(frozen=True)

@@ -40,8 +40,13 @@ A record also counts (:func:`count`, ``.counts`` of the dict
 * ``plane_slots`` / ``symbols``: the slots a device decode route's symbols
   come from (K·m·lanes of packed words, or the compacted plane's slots),
   and the symbols the symbols kernel wrote and the host fetched;
-* ``fsm_builds``: byte automata built, each a miss of ``build_byte_fsm``'s
-  cache (the stage ``fsm_build``);
+* ``fsm_builds``: decode tables built from a code table (the stage
+  ``fsm_build``): a byte automaton on the host, each a miss of
+  ``build_byte_fsm``'s cache, or the one-pass tables on a CUDA device;
+* ``fsm_device_builds``: those of ``fsm_builds`` built on the device, one
+  launch of ``ops/cuda_tables``' kernel each (the one-pass route on a CUDA
+  device, ``tables.card_decode_tables``; a local mesh counts one a rank), so
+  ``fsm_device_builds / fsm_builds`` is the share of builds on the card;
 * ``device_stitches``: the single-device encode's tiles stitched on the
   device (the stage ``device_stitch``, one launch of ``ops/cuda_stitch``'s
   kernel a tile);

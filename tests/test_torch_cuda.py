@@ -10,6 +10,7 @@ pack words are compared where the byte's count or the ``emitted`` flag makes
 them live.
 """
 
+import collections
 import json
 import subprocess
 import sys
@@ -927,6 +928,149 @@ def test_fuzz_corruption_card(kind, route, dev):
         host = _outcome(lambda: et.decompress(bad, backend="host"))
         for backend in ("device", "sharded"):
             assert _outcome(lambda: et.decompress(bad, backend=backend, expand=route)) == host
+
+
+# --- the one-pass tables built on the card (csrc/tables.cu) ---
+
+def _trie_table(name: str):
+    """The code tables of tests/test_torch_tables.py's trie set, from the
+    port's own format modules: the midsummer text, the three .et files,
+    skewed (m = 4), run-heavy (m = 8), every byte (S = 256), two symbols,
+    and the text's table pruned of two codes (dead edges)."""
+    from entreepy_tpu_torch.format import build_code_table, histogram, parse_header
+    from entreepy_tpu_torch.format.huffman import CodeTable
+
+    if name.endswith(".et"):
+        return parse_header((DATA / name).read_bytes()).table
+    data = {"midsummer": (DATA / "a_midsummer_nights_dream.txt").read_bytes(),
+            "two": b"ab" * 500 + b"a"}.get(name) or _corpus(name.replace("pruned", "text"))
+    table = build_code_table(histogram(np.frombuffer(data, np.uint8)))
+    if name == "pruned":
+        lengths, codes = table.lengths.copy(), table.codes.copy()
+        for sym in b"eq":
+            lengths[sym] = codes[sym] = 0
+        table = CodeTable(codes, lengths)
+    return table
+
+
+TRIE_TABLES = ("midsummer", "a_midsummer_nights_dream.et", "nice.shakespeare.et", "test.et",
+               "skewed", "runheavy", "random", "two", "pruned")
+
+
+@pytest.mark.parametrize("name", TRIE_TABLES)
+def test_fsm_tables_kernel(name, dev):
+    """The tables kernel against the host's NumPy build and its own plain
+    version: next_state and the fused table byte for byte, one launch, every
+    output byte written (torch.empty's leftovers never show: the outputs of
+    two launches into memory filled 0x00 and 0xFF first agree)."""
+    from entreepy_tpu_torch.format.fsm8 import _build_trie, build_byte_fsm, fused_decode_tensors
+    from entreepy_tpu_torch.ops import cuda_tables
+
+    table = _trie_table(name)
+    fsm = build_byte_fsm(table)
+    want, m, mt, s = fused_decode_tensors(fsm)
+    children, leaf_sym = _build_trie(table)
+    width, got_m, got_mt, got_s = cuda_tables.trie_layout(children, leaf_sym)
+    assert (width, got_m, got_mt, got_s) == (fsm.width, m, mt, s)
+    edges = cuda_tables.pack_trie(children, leaf_sym)
+    outs = []
+    for fill in (0, 255):
+        torch.cuda.empty_cache()
+        junk = torch.full((1 << 20,), fill, dtype=torch.uint8, device=dev)
+        del junk  # its blocks go back to the cache, filled
+        before = cuda_tables.fsm_tables.launches
+        outs.append(cuda_tables.fsm_tables(edges, width, s, mt, dev))
+        assert cuda_tables.fsm_tables.launches == before + 1
+    torch.cuda.synchronize()
+    for ns, fused in outs:
+        assert ns.device.type == fused.device.type == "cuda"
+        assert np.array_equal(ns.cpu().numpy(), fsm.next_state)
+        assert np.array_equal(fused.cpu().numpy(), want.astype(np.uint8))
+    plain = cuda_tables.fsm_tables_plain(edges, width, s, mt, dev)
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], plain))
+
+
+def _stage_counts(fn):
+    from entreepy_tpu_torch import trace
+
+    with trace.record_stages() as rec:
+        out = fn()
+    return out, rec
+
+
+@pytest.mark.parametrize("name", ["a_midsummer_nights_dream", "nice.shakespeare", "test"])
+def test_decompress_builds_its_tables_on_the_card(name, dev):
+    """decompress on the card of each .et file of tests/data: its text, one
+    tables-kernel launch, fsm_device_builds == fsm_builds == 1, the stage
+    fsm_build inside decode_tables, and the host's ByteFsm cache untouched."""
+    from entreepy_tpu_torch.format import fsm8
+    from entreepy_tpu_torch.ops import cuda_tables
+
+    blob = (DATA / f"{name}.et").read_bytes()
+    cache, launches = dict(fsm8._FSM_CACHE), cuda_tables.fsm_tables.launches
+    out, rec = _stage_counts(lambda: et.decompress(blob, backend="device"))
+    assert out == (DATA / f"{name}.txt").read_bytes()
+    assert rec.counts["fsm_builds"] == rec.counts["fsm_device_builds"] == 1
+    assert cuda_tables.fsm_tables.launches == launches + 1
+    assert list(rec)[:3] == ["parse_header", "fsm_build", "decode_tables"]
+    assert fsm8._FSM_CACHE == cache
+
+
+def test_two_tile_onepass_decode_builds_once_on_the_card(dev):
+    """A one-pass decode in two tiles: exact, its tables built once on the
+    card for both tiles."""
+    from entreepy_tpu_torch.format import fsm8
+
+    data = _corpus("text", 60000)
+    table, n, buf = body_for(et.compress(data, backend="host"))
+    lanes = -(-buf.size // decode8.DEFAULT_CHUNK_BYTES)
+    cache, syncs = dict(fsm8._FSM_CACHE), cuda_fsm8.sync_pass.launches
+    out, rec = _stage_counts(lambda: decode8.decode_body_device_tiled(
+        buf, table, n, device=dev, tile_lanes=-(-lanes // 2)))
+    assert bytes(out) == data and cuda_fsm8.sync_pass.launches - syncs == 2
+    assert rec.counts["fsm_builds"] == rec.counts["fsm_device_builds"] == 1
+    assert fsm8._FSM_CACHE == cache
+
+
+@pytest.mark.parametrize("name", ["midsummer", "skewed", "random"])
+def test_card_tables_leave_no_scratch(name, dev):
+    """route_tables on the card raises torch.cuda.max_memory_allocated by no
+    more than the two tables' bytes (each rounded up to the allocator's
+    512-byte blocks): the build allocates nothing else on the card."""
+    table = _trie_table(name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    fsm, t = decode8.route_tables(table, dev, "onepass")
+    torch.cuda.synchronize()
+    assert fsm is None
+    rounded = sum(-(-x.numel() // 512) * 512 for x in (t.next_state, t.fused))
+    assert torch.cuda.max_memory_allocated(dev) - base <= rounded
+
+
+@pytest.mark.parametrize("cards", ["one", "every"])
+def test_local_mesh_builds_a_table_per_rank(cards, dev):
+    """A local mesh decodes with no ByteFsm in the caller: each rank builds
+    its tables on its own card, so a call counts one fsm_device_builds a rank
+    (two ranks on cuda:0; a rank on every card, 4 on a four-card machine)
+    and fsm_builds as many (a build in the caller would count one more),
+    and launches the tables kernel once a rank on its card."""
+    from entreepy_tpu_torch.ops import cuda_tables
+    from entreepy_tpu_torch.parallel import decompress_sharded, make_mesh
+
+    n = torch.cuda.device_count()
+    if cards == "every" and n < 2:
+        pytest.skip(f"needs 2 or more cards, this machine has {n}")
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"]) if cards == "one" else make_mesh()
+    data = _corpus("text")
+    blob = et.compress(data, backend="host")
+    before = collections.Counter(cuda_tables.fsm_tables.launches_on)
+    out, rec = _stage_counts(lambda: decompress_sharded(blob, mesh))
+    assert out == data
+    assert rec.counts["fsm_device_builds"] == rec.counts["fsm_builds"] == mesh.world
+    launched = collections.Counter(cuda_tables.fsm_tables.launches_on)
+    launched.subtract(before)
+    assert +launched == collections.Counter(d.index for d in mesh.devices)
 
 
 # --- the bench (tests/test_torch_bench.py) on the card ---

@@ -2,7 +2,7 @@
 
 * ``tools/_sanitize_torch_driver.py`` (the driver of ``tools/sanitize_torch.sh``)
   run uninstrumented: it reaches all 12 entry points of the host runtime;
-* the 38 kernel instantiations of ``tools/sanitize_kernels.py`` against the
+* the 39 kernel instantiations of ``tools/sanitize_kernels.py`` against the
   dispatch code of ``csrc/``, and its calls, which reach them, through the
   plain versions;
 * its guard bands, on faults made on purpose and on every call.
@@ -43,8 +43,8 @@ def test_sanitize_script_rejects_unknown_tool():
 
 def test_instantiations_are_the_sources():
     """INSTANTIATIONS names exactly the instantiations the dispatch code of
-    csrc/ names, 38 of them."""
-    assert len(sk.INSTANTIATIONS) == len(set(sk.INSTANTIATIONS)) == 38
+    csrc/ names, 39 of them."""
+    assert len(sk.INSTANTIATIONS) == len(set(sk.INSTANTIATIONS)) == 39
     assert sk.source_instantiations() == set(sk.INSTANTIATIONS)
 
 
@@ -82,7 +82,7 @@ def test_dispatch_rule(rule, args, want):
 
 def test_plan_reaches_every_instantiation():
     """The calls, laid out on the CPU: by the dispatch rules they
-    reach all 38 instantiations, at lanes 1, 7, 33 and 300."""
+    reach all 39 instantiations, at lanes 1, 7, 33 and 300."""
     calls = sk.plan("cpu")
     assert {c.instantiation for c in calls} == set(sk.INSTANTIATIONS)
     for lanes in (1, 7, 33, 300):
@@ -106,7 +106,7 @@ def test_child_runs_on_cpu():
     r = subprocess.run([sys.executable, "tools/sanitize_kernels.py", "--device", "cpu"],
                        cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert "reached 38/38 instantiations" in r.stdout
+    assert "reached 39/39 instantiations" in r.stdout
     assert r.stdout.count(": exact") == 9
 
 

@@ -116,12 +116,12 @@ def main(argv: list[str] | None = None) -> int:
     import entreepy_tpu_torch as et
     from entreepy_tpu_torch import _build, runtime
     from entreepy_tpu_torch.ops import (cuda_compact, cuda_fsm8, cuda_pack, cuda_stitch,
-                                        cuda_symbols)
+                                        cuda_symbols, cuda_tables)
 
     kernels = (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_fsm8.emit_pass,
                cuda_fsm8.expand_pass_split, cuda_fsm8.expand_pass, cuda_pack.pack_blocks,
                cuda_compact.compact_rows, cuda_symbols.symbol_counts, cuda_symbols.write_symbols,
-               cuda_stitch.stitch_tile)
+               cuda_stitch.stitch_tile, cuda_tables.fsm_tables)
     data, out = Path(args.input).read_bytes(), Path(args.out)
     host = et.compress(data, backend="host")
     device = et.compress(data, backend="device", device=args.device)

@@ -48,7 +48,9 @@ import entreepy_tpu_torch as et
 from entreepy_tpu_torch.bench import make_corpus
 from entreepy_tpu_torch.bench.timing import peak_bytes
 from entreepy_tpu_torch.format import parse_header
-from entreepy_tpu_torch.ops import cuda_compact, cuda_fsm8, cuda_pack, cuda_stitch, decode8, encode
+from entreepy_tpu_torch.ops import (
+    cuda_compact, cuda_fsm8, cuda_pack, cuda_stitch, cuda_tables, decode8, encode,
+)
 from entreepy_tpu_torch.parallel import dist as pdist
 
 
@@ -65,7 +67,8 @@ BODY_MIN = 1 << 31  # the random configuration's body: past every 32-bit positio
 PEAK_RATIO = 1.10
 # The kernels the phase must launch (the expansions run in the smoke's [e2e])
 PATH_KERNELS = (cuda_fsm8.sync_pass, cuda_fsm8.fused_pass, cuda_fsm8.emit_pass,
-                cuda_pack.pack_blocks, cuda_compact.compact_rows, cuda_stitch.stitch_tile)
+                cuda_pack.pack_blocks, cuda_compact.compact_rows, cuda_stitch.stitch_tile,
+                cuda_tables.fsm_tables)
 
 
 def require(ok: bool, msg: str) -> None:

@@ -1,7 +1,7 @@
 """Every CUDA kernel instantiation of entreepy_tpu_torch, launched at small
 odd shapes and checked inside poisoned guard bands.
 
-:func:`plan` lays out calls that launch each of the 38 template
+:func:`plan` lays out calls that launch each of the 39 template
 instantiations of ``csrc/`` at least once, through the kernel wrappers of
 ``ops/cuda_*.py``, at shapes that reach every guard (lanes 1, 7, 33 and 300;
 partial last chunks, blocks and rounds; k = 1, 16, 17, 33, 48 and 512); the
@@ -58,11 +58,11 @@ INSTANTIATIONS = (
     *(f"expand_kernel<{m + 1}, {4 if m < 4 else 8 if m < 8 else 16}, false>"
       for m in range(1, 9)),
     "symbols_kernel<false, false>", "symbols_kernel<false, true>", "symbols_kernel<true, true>",
-    "stitch_kernel",
+    "stitch_kernel", "tables_kernel",
 )
 PORT_KERNELS = ("walk_kernel", "fused_kernel", "pack_kernel", "compact_tile_kernel",
                 "compact_serial_kernel", "expand_split_kernel", "expand_kernel", "symbols_kernel",
-                "stitch_kernel")
+                "stitch_kernel", "tables_kernel")
 
 
 # ---- the dispatch rules of csrc/, one per C entry point ----
@@ -199,8 +199,11 @@ def plan(device) -> list[Call]:
     import torch
 
     import entreepy_tpu_torch as et
+    from entreepy_tpu_torch.format import parse_header
+    from entreepy_tpu_torch.format.fsm8 import _build_trie
+    from entreepy_tpu_torch.format.huffman import CodeTable
     from entreepy_tpu_torch.ops import (cuda_compact, cuda_fsm8, cuda_pack, cuda_stitch,
-                                        cuda_symbols)
+                                        cuda_symbols, cuda_tables)
     from entreepy_tpu_torch.tables import code_tensors_for, decode_tables_for, expand_tables_for
 
     device = torch.device(device)
@@ -342,6 +345,23 @@ def plan(device) -> list[Call]:
             below(2**31 - 1, groups * cap, lanes, dtype=np.int32), dev(counts),
             dev(rng.integers(0, 2**32, lanes, dtype=np.uint32)), dev(nbits), shift, n_words,
             u8(4) if carried else None)
+
+    # tables_kernel (tables.cu et_fsm_tables, one instantiation): S = 128 and 256, m = 1, 2,
+    # 3, 4 and 8, two symbols (one internal node), and a trie with dead edges
+    tries = {k: parse_header(b).table for k, b in blobs.items()}
+    two_lengths, two_codes = np.zeros(256, np.uint8), np.zeros(256, np.uint32)
+    two_lengths[[65, 66]], two_codes[66] = 1, 1
+    tries["two"] = CodeTable(two_codes, two_lengths)
+    pruned_lengths, pruned_codes = tries["text"].lengths.copy(), tries["text"].codes.copy()
+    for sym in b"eq":
+        pruned_lengths[sym] = pruned_codes[sym] = 0
+    tries["pruned"] = CodeTable(pruned_codes, pruned_lengths)
+    for kind in ("text", "uniform", "few", "wide3", "skewed", "runheavy", "two", "pruned"):
+        children, leaf_sym = _build_trie(tries[kind])
+        width, m, mt, s = cuda_tables.trie_layout(children, leaf_sym)
+        add(f"fsm_tables {kind}: {children.shape[0]} nodes, S={width} m={m} s={s}",
+            "tables_kernel", cuda_tables.fsm_tables, cuda_tables.pack_trie(children, leaf_sym),
+            width, s, mt, device)
     return calls
 
 
@@ -522,7 +542,7 @@ def profiled_instantiations(calls: list[Call], device) -> set[str]:
 
 def run_calls(device) -> int:
     """Every call of :func:`plan`, then :func:`api_round_trips`; prints the
-    call that reaches each instantiation and ``reached N/38``."""
+    call that reaches each instantiation and ``reached N/39``."""
     import torch
 
     missing = set(INSTANTIATIONS) ^ source_instantiations()

@@ -9,9 +9,10 @@ Each NAME=ROOT names the root of a checkout (for a parent commit:
 ``--order`` (default for two checkouts: first, second, second, first; for
 more: each once, as given) runs in a process of its own, because every
 package is named ``entreepy_tpu_torch``. The process
-builds that checkout's kernels and times all seven, ``sync_pass``,
+builds that checkout's kernels and times the seven ports, ``sync_pass``,
 ``fused_pass``, ``emit_pass``, ``expand_pass_split``, ``expand_pass``,
-``pack_blocks`` and ``compact_rows``, at the shapes of the main path, on
+``pack_blocks`` and ``compact_rows``, and the tables kernel,
+``fsm_tables``, where the checkout has it, at the shapes of the main path, on
 inputs made the same way in every turn:
 
 * sync_pass: the suffix window (128 B) of the 5.2 MB text body (5,958
@@ -35,6 +36,9 @@ inputs made the same way in every turn:
 * pack_blocks: the 5.2 MB text in 1 KiB blocks (5,079) and one 32 MiB
   encode tile of the 100 MB text (32,768 blocks), each with its corpus's
   code table;
+* fsm_tables: the one-pass tables of the 5.2 MB text's, the 5 MB skewed
+  body's and the 5 MB run-heavy body's code tables, held to the plain
+  version and to the host's NumPy build;
 * compact_rows: the encode plane of the 5.2 MB text (1 KiB blocks), the
   one-pass decode's m > 3 rows of the skewed body, the two-pass rows of the
   text body (split table) and of the run-heavy body (full table), from the
@@ -173,6 +177,34 @@ def _worker(root: Path, only: set[str]) -> dict:
                                                                      zeros)),
             "shape": f"{lanes} lanes x {w} B, S={tables.next_state.shape[0]}"}
 
+    def tables(label: str, blob: bytes):
+        if not wanted("fsm_tables"):
+            return
+        try:
+            from entreepy_tpu_torch.ops import cuda_tables
+        except ImportError:  # a checkout from before the tables kernel: nothing to time
+            return
+        from entreepy_tpu_torch.format import parse_header
+        from entreepy_tpu_torch.format.fsm8 import (_build_byte_fsm, _build_trie,
+                                                    fused_decode_tensors)
+
+        table = parse_header(blob).table
+        children, leaf_sym = _build_trie(table)
+        width, m, mt, s = cuda_tables.trie_layout(children, leaf_sym)
+        args = (cuda_tables.pack_trie(children, leaf_sym), width, s, mt, dev)
+        ns, fused = cuda_tables.fsm_tables(*args)
+        plain = cuda_tables.fsm_tables_plain(*args)
+        fsm = _build_byte_fsm(table)
+        host = (torch.from_numpy(fsm.next_state).to(dev),
+                torch.from_numpy(fused_decode_tensors(fsm)[0].astype(np.uint8)).to(dev))
+        out[f"fsm_tables {label}"] = {
+            "ms": kernel_ms(lambda: cuda_tables.fsm_tables(*args)),
+            "bound_ms": bound_ms(ns, fused),
+            "max_abs_err": max(max_err(ns, plain[0]), max_err(fused, plain[1]),
+                               max_err(ns, host[0]), max_err(fused, host[1])),
+            "shape": f"{children.shape[0]} nodes, S={width} m={m} s={s}, fused "
+                     f"{tuple(fused.shape)}"}
+
     def fused(label: str, blob: bytes, n_lanes: int | None = None):
         if not wanted("fused_pass"):
             return
@@ -307,6 +339,9 @@ def _worker(root: Path, only: set[str]) -> dict:
         expand(label, blobs[kind], True)
         expand(label, blobs[kind], False)
     expand("skewed 5 MB", blobs["skewed"], False)
+    for kind, label in (("text", "text 5.2 MB"), ("skewed", "skewed 5 MB"),
+                        ("runheavy", "runheavy 5 MB")):
+        tables(label, blobs[kind])
 
     words, emitted, _acc, _nbits = pack("text 5.2 MB", text, blobs["text"])
     pack("32 MiB encode tile of text 100 MB", big[: 32 << 20], blobs["big"])
@@ -335,7 +370,7 @@ def main(argv: list[str]) -> int:
                     "A,B,B,A; for more, each once)")
     ap.add_argument("--only", default="", help="comma-separated kernels to time "
                     "(sync_pass, fused_pass, emit_pass, expand_pass_split, expand_pass, "
-                    "pack_blocks, compact_rows; default: all)")
+                    "fsm_tables, pack_blocks, compact_rows; default: all)")
     ap.add_argument("--out", help="also write the JSON summary here")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
