@@ -180,19 +180,14 @@ def _expand_mask(raw: torch.Tensor, syms: torch.Tensor, n_valid: int):
     return torch.where(real, raw & 15, 0), real & (raw >= 16), syms
 
 
-def run_expand(xs: torch.Tensor, states: torch.Tensor, tables: ExpandTables,
-               n_valid: int):
-    """The two-pass expansion (the JAX package's ``run_expand`` with its
-    ``expand_pass_split`` and ``expand_pass_device``): xs/states
-    uint8[K, lanes] through the split table, or the full one when
-    ``tables.mt`` is None -> (counts int32[K, lanes], inv bool[K, lanes],
-    syms uint8[K, m, lanes]), masked to lane-linear positions < ``n_valid``.
-    Both expansions return uint8 rows, so the slots are a view of them."""
+def expand_rows(xs: torch.Tensor, states: torch.Tensor, tables: ExpandTables) -> torch.Tensor:
+    """The two-pass expansion kernel (the JAX package's ``expand_pass_split``
+    and ``expand_pass_device``): xs/states uint8[K, lanes] through the split
+    table, or the full one when ``tables.mt`` is None -> unmasked uint8 rows
+    [K, m+1, lanes] (row 0 count | 16*invalid, then the m slots)."""
     if tables.mt is None:
-        vals = cuda_fsm8.expand_pass(xs, states, tables.table, tables.m, tables.vec)
-    else:
-        vals = cuda_fsm8.expand_pass_split(xs, states, tables.table, tables.m, tables.mt)
-    return _expand_mask(vals[:, 0], vals[:, 1:], n_valid)
+        return cuda_fsm8.expand_pass(xs, states, tables.table, tables.m, tables.vec)
+    return cuda_fsm8.expand_pass_split(xs, states, tables.table, tables.m, tables.mt)
 
 
 def _sub_width(k: int) -> int:
@@ -217,15 +212,21 @@ def packed_symbols(words: torch.Tensor, m: int):
     return _write_lanes(words, lane_tot, m), lane_tot, w_inv
 
 
-def plane_symbols(counts: torch.Tensor, inv: torch.Tensor, syms: torch.Tensor, m: int):
-    """Masked unpacked rows -> (symbols uint8 in stream order, lane_tot,
-    w_inv): the compacted plane of :func:`compact_symbols_device`, its cap
-    sized by :func:`sym_cap`, then the symbols kernel's write launch over
-    it. ``lane_tot`` is poisoned to -1 on a cap overflow, which
+def plane_symbols(vals: torch.Tensor, m: int, n_valid: int):
+    """Unpacked rows [K, m+1, lanes] (int32 of the fused pass, or uint8 of
+    an expansion) -> (symbols uint8 in stream order, lane_tot, w_inv). Inside
+    the stage ``plane_compact``: the real-byte mask (lane-linear position <
+    ``n_valid``, :func:`_expand_mask`), the cap read back (:func:`sym_cap`)
+    and the compacted plane (:func:`compact_symbols_device`), counted once
+    in ``plane_compactions``; then the symbols kernel's write launch over
+    the plane. ``lane_tot`` is poisoned to -1 on a cap overflow, which
     :func:`validate_chunk_meta` then refuses; the symbols are the slots the
     plane kept."""
-    cap = sym_cap(counts, m)
-    plane, mini_tot, lane_tot, w_inv = compact_symbols_device(counts, inv, syms, m, cap)
+    with phase("plane_compact"):
+        counts, inv, syms = _expand_mask(vals[:, 0], vals[:, 1:].to(torch.uint8), n_valid)
+        cap = sym_cap(counts, m)
+        plane, mini_tot, lane_tot, w_inv = compact_symbols_device(counts, inv, syms, m, cap)
+    count("plane_compactions", 1)
     count("plane_slots", plane.numel())
     kept = mini_tot.clamp(max=cap).sum(0, dtype=torch.int32)
     return _write_lanes(plane, kept, 1, mini_tot, cap), lane_tot, w_inv
@@ -233,12 +234,11 @@ def plane_symbols(counts: torch.Tensor, inv: torch.Tensor, syms: torch.Tensor, m
 
 def onepass_symbols(vals: torch.Tensor, m: int, packed: bool, n_valid: int):
     """Fused-pass rows -> (symbols, lane_tot, w_inv) on their device: MASKED
-    packed words (m <= 3) straight into the symbols kernel, else the
-    real-byte mask (lane-linear position < ``n_valid``) and
+    packed words (m <= 3) straight into the symbols kernel, else
     :func:`plane_symbols`."""
     if packed:
         return packed_symbols(vals, m)
-    return plane_symbols(*_expand_mask(vals[:, 0], vals[:, 1:].to(torch.uint8), n_valid), m)
+    return plane_symbols(vals, m, n_valid)
 
 
 def sym_cap(counts: torch.Tensor, m: int) -> int:
@@ -447,7 +447,7 @@ def route_symbols(rows, tables, expand: str, n_valid: int, n_symbols: int):
     with phase("device_expand", n_symbols):
         if expand == "onepass":
             return onepass_symbols(rows, tables.m, tables.m <= 3, n_valid)
-        return plane_symbols(*run_expand(*rows, tables, n_valid), tables.m)
+        return plane_symbols(expand_rows(*rows, tables), tables.m, n_valid)
 
 
 @functools.cache

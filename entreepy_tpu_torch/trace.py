@@ -40,6 +40,9 @@ A record also counts (:func:`count`, ``.counts`` of the dict
 * ``plane_slots`` / ``symbols``: the slots a device decode route's symbols
   come from (K·m·lanes of packed words, or the compacted plane's slots),
   and the symbols the symbols kernel wrote and the host fetched;
+* ``plane_compactions``: planes compacted by the plane route
+  (``ops.decode8.plane_symbols``: the one-pass route at m > 3, one a tile,
+  and the two-pass routes); 0 on the packed one-pass route (m <= 3);
 * ``fsm_builds``: decode tables built from a code table (the stage
   ``fsm_build``): a byte automaton on the host, each a miss of
   ``build_byte_fsm``'s cache, or the one-pass tables on a CUDA device;
@@ -53,6 +56,11 @@ A record also counts (:func:`count`, ``.counts`` of the dict
 * ``mesh_exchanges`` / ``p2p_bytes``: a sharded rank's exchanges with the
   other ranks, and the bytes of their tensors it took in them (counted only
   where something is exchanged; ``parallel.dist``).
+
+The plane route's compaction is the stage ``plane_compact``: the real-byte
+mask, the cap's readback and the compaction kernel with its int32 copy of
+the slots, nested in ``device_expand`` (the symbols kernel's write launch
+stays outside it), so that no other stage changes its definition.
 
 The sharded backend's exchanges are also stages, ``mesh_wait`` (a rank
 waiting for the others) and ``mesh_copy`` (taking their tensors onto its

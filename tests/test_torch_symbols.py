@@ -71,7 +71,8 @@ def test_packed_form_matches_numpy_selection(m, k, lanes, pad):
 def test_plane_form_matches_numpy_selection(m, lanes):
     """A subgroup plane (m > 3 and the two-pass routes): the write launch's
     symbols are the numpy selection of the JAX compaction's plane, and
-    :func:`decode8.plane_symbols` passes its lane_tot and w_inv through."""
+    :func:`decode8.plane_symbols`, given those slots as unpacked rows,
+    passes its lane_tot and w_inv through."""
     rng = np.random.default_rng(m + lanes)
     k = 64
     counts = rng.integers(0, m + 1, (k, lanes)).astype(np.int32)
@@ -87,8 +88,10 @@ def test_plane_form_matches_numpy_selection(m, lanes):
     ends = tmini.sum(0).cumsum(0)
     got = cuda_symbols.write_symbols(tplane, ends, int(ends[-1]), 1, tmini, cap)
     assert np.array_equal(got.numpy(), want)
-    out, tot, winv = decode8.plane_symbols(torch.from_numpy(counts), torch.from_numpy(inv),
-                                           torch.from_numpy(syms), m)
+    # the same slots as unpacked rows (count | 16*invalid, then m slots), every byte real
+    raw = (counts + 16 * inv).astype(np.uint8)
+    vals = np.concatenate([raw[:, None], syms], axis=1)
+    out, tot, winv = decode8.plane_symbols(torch.from_numpy(vals), m, k * lanes)
     assert np.array_equal(out.numpy(), want)
     assert np.array_equal(tot.numpy(), np.asarray(lane_tot))
     assert np.array_equal(winv.numpy(), np.asarray(w_inv))

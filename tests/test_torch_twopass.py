@@ -136,8 +136,9 @@ def _expansion_inputs(name: str, request, chunk: int = 32):
 def _run_expand(cols, states, tables, n_valid):
     """The port's expansion on the JAX layout's inputs, transposed to the
     kernels' [K, lanes]."""
-    return td.run_expand(torch.from_numpy(np.ascontiguousarray(cols.T)),
-                         torch.from_numpy(np.ascontiguousarray(states.T)), tables, n_valid)
+    vals = td.expand_rows(torch.from_numpy(np.ascontiguousarray(cols.T)),
+                          torch.from_numpy(np.ascontiguousarray(states.T)), tables)
+    return td._expand_mask(vals[:, 0], vals[:, 1:], n_valid)
 
 
 def _assert_masked_equal(got, want, m: int):
@@ -356,9 +357,10 @@ def test_unconverged_state_pass_uses_host_decoder(mode, monkeypatch, midsummer):
     assert td.decode_host.calls == before + 1
 
 
+# the compaction's stage ``plane_compact`` nests in ``device_expand``, so it ends first
 DEVICE_STAGES = ["parse_header", "fsm_build", "decode_tables", "body_upload",
-                 "device_fsm8_decode", "device_expand", "device_sym_fetch", "host_extract",
-                 "host_validate", "host_check_bits", "join_output"]
+                 "device_fsm8_decode", "plane_compact", "device_expand", "device_sym_fetch",
+                 "host_extract", "host_validate", "host_check_bits", "join_output"]
 
 
 @pytest.mark.parametrize("mode,stages", [

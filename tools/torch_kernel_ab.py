@@ -42,8 +42,9 @@ inputs made the same way in every turn:
 * compact_rows: the encode plane of the 5.2 MB text (1 KiB blocks), the
   one-pass decode's m > 3 rows of the skewed body, the two-pass rows of the
   text body (split table) and of the run-heavy body (full table), from the
-  checkout's own ``decode8.run_expand`` (whose rows a checkout may keep in
-  int32 or uint8).
+  checkout's own ``decode8.expand_rows`` masked by ``_expand_mask``
+  (``run_expand`` in a checkout from before them; a checkout may keep the
+  rows in int32 or uint8).
 
 Fused entry states are the converged ones of the checkout's own
 fixed-point loop. ``--only`` times the named kernels alone.
@@ -297,7 +298,11 @@ def _worker(root: Path, only: set[str]) -> dict:
     def two_pass_rows(blob: bytes, split: bool):
         """The two-pass route's compaction operands of a body."""
         tables, buf, xs, states = two_pass_inputs(blob, split)
-        counts, _inv, syms = decode8.run_expand(xs, states, tables, buf.size)
+        if hasattr(decode8, "expand_rows"):
+            vals = decode8.expand_rows(xs, states, tables)
+            counts, _inv, syms = decode8._expand_mask(vals[:, 0], vals[:, 1:], buf.size)
+        else:
+            counts, _inv, syms = decode8.run_expand(xs, states, tables, buf.size)
         return rows_of(counts, syms, tables.m)
 
     def rows_of(counts, syms, m: int):
